@@ -1,0 +1,566 @@
+"""Shared fluent hyperparameters and the implicit sequence-model base class,
+serving half. Counterpart of :mod:`sbr_rs_tpu.models.base`.
+
+What is here: the fluent ``Hyperparameters`` (their dicts load in either
+package), user representations, ``predict``, and ``recommend_batch`` with
+the exact top-k of the JAX package:
+
+* catalogs of at most ``_SERVE_ITEM_CHUNK`` items: one dense ``[U, N]``
+  score matrix and one top-k (:func:`topk_small`);
+* larger catalogs: the exact two-phase selection (:func:`topk_streamed`).
+  Phase 1 keeps the top ``k + S`` groups by group maximum from the fused
+  score + group-max kernel (:mod:`..ops.topk_kernels`), over the whole
+  catalog in one call when the maxima fit ``_MERGE_BUFFER_BYTES`` (with
+  subgroup refinement), else chunk by chunk with a running merge. Phase 2
+  re-scores the kept candidates in f32, drops seen items by id and takes
+  the exact top-k;
+* seen lists wider than ``_SERVE_MAX_POSTFILTER_SEEN``: chunked scoring
+  with a per-chunk seen mask (:func:`topk_streamed_bigseen`).
+
+The budgets keep the JAX package's values, so both packages take the same
+branch for the same shapes. Training (``fit``), ``approximate=True`` and
+the sharded paths are not ported yet. PyTorch runs eagerly, so there is no
+program cache.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..errors import InvalidPredictionValue
+from ..ops.topk_kernels import (
+    groupmax_supported,
+    score_groupmax,
+    score_submax_groupmax,
+)
+from ..utils.convert import params_from_numpy
+from . import ImplicitUser, Loss, Optimizer, Parallelism
+from .engine import init_embedding_params, table_dtype
+
+
+class Hyperparameters:
+    """Fluent hyperparameters (reference ``src/models/lstm.rs:54-139``),
+    with the JAX package's fields and defaults. The mesh is not ported."""
+
+    def __init__(self, num_items: int, max_sequence_length: int):
+        self._num_items = int(num_items)
+        self._max_sequence_length = int(max_sequence_length)
+        self._item_embedding_dim = 16
+        self._learning_rate = 0.01
+        self._l2_penalty = 0.0
+        self._loss = Loss.BPR
+        self._optimizer = Optimizer.ADAM
+        self._parallelism = Parallelism.SYNCHRONOUS
+        self._num_threads = 1
+        self._num_epochs = 10
+        self._batch_size = 32
+        self._seed = int(np.random.SeedSequence().entropy % (2**31))
+        self._sparse_updates = None  # None = auto by table size
+        self._packed = False
+        self._table_dtype = "float32"
+        self._lr_schedule = "constant"
+        self._embedding_init_scale = 1.0
+
+    def learning_rate(self, learning_rate: float) -> "Hyperparameters":
+        self._learning_rate = float(learning_rate)
+        return self
+
+    def lr_schedule(self, schedule: str) -> "Hyperparameters":
+        if schedule not in ("constant", "linear", "cosine", "warmup_cosine"):
+            raise ValueError(f"unknown lr schedule: {schedule!r}")
+        self._lr_schedule = schedule
+        return self
+
+    def embedding_init_scale(self, scale: float) -> "Hyperparameters":
+        self._embedding_init_scale = float(scale)
+        return self
+
+    def l2_penalty(self, l2_penalty: float) -> "Hyperparameters":
+        self._l2_penalty = float(l2_penalty)
+        return self
+
+    def embedding_dim(self, embedding_dim: int) -> "Hyperparameters":
+        self._item_embedding_dim = int(embedding_dim)
+        return self
+
+    def num_epochs(self, num_epochs: int) -> "Hyperparameters":
+        self._num_epochs = int(num_epochs)
+        return self
+
+    def loss(self, loss: Loss) -> "Hyperparameters":
+        self._loss = loss
+        return self
+
+    def optimizer(self, optimizer: Optimizer) -> "Hyperparameters":
+        self._optimizer = optimizer
+        return self
+
+    def parallelism(self, parallelism: Parallelism) -> "Hyperparameters":
+        self._parallelism = parallelism
+        return self
+
+    def num_threads(self, num_threads: int) -> "Hyperparameters":
+        self._num_threads = int(num_threads)
+        return self
+
+    def batch_size(self, batch_size: int) -> "Hyperparameters":
+        self._batch_size = int(batch_size)
+        return self
+
+    def from_seed(self, seed: int) -> "Hyperparameters":
+        self._seed = int(seed) % (2**31)
+        return self
+
+    def rng(self, rng: "np.random.Generator | int") -> "Hyperparameters":
+        """Seed from an RNG or integer (reference ``src/models/lstm.rs:122-125``)."""
+        if isinstance(rng, np.random.Generator):
+            self._seed = int(rng.integers(0, 2**31))
+        else:
+            self._seed = int(rng) % (2**31)
+        return self
+
+    def sparse_updates(self, enabled: "bool | None") -> "Hyperparameters":
+        self._sparse_updates = enabled
+        return self
+
+    def table_dtype(self, dtype: str) -> "Hyperparameters":
+        """Storage dtype of the item table: ``"float32"`` or ``"bfloat16"``.
+        Serving math is f32 either way."""
+        table_dtype(dtype)  # validates
+        self._table_dtype = str(dtype)
+        return self
+
+    def packed(self, enabled: bool) -> "Hyperparameters":
+        self._packed = bool(enabled)
+        return self
+
+    def to_dict(self) -> dict:
+        return {
+            "num_items": self._num_items,
+            "max_sequence_length": self._max_sequence_length,
+            "item_embedding_dim": self._item_embedding_dim,
+            "learning_rate": self._learning_rate,
+            "l2_penalty": self._l2_penalty,
+            "loss": self._loss.value,
+            "optimizer": self._optimizer.value,
+            "parallelism": self._parallelism.value,
+            "num_threads": self._num_threads,
+            "num_epochs": self._num_epochs,
+            "batch_size": self._batch_size,
+            "seed": self._seed,
+            "packed": self._packed,
+            "table_dtype": self._table_dtype,
+            "sparse_updates": self._sparse_updates,
+            "lr_schedule": self._lr_schedule,
+            "embedding_init_scale": self._embedding_init_scale,
+        }
+
+    @classmethod
+    def _from_dict_common(cls, d: dict) -> "Hyperparameters":
+        """Keys this package does not know (``use_pallas``, ``model_type``,
+        ``state_sha256``) are ignored."""
+        hp = cls(d["num_items"], d["max_sequence_length"])
+        hp._item_embedding_dim = d["item_embedding_dim"]
+        hp._learning_rate = d["learning_rate"]
+        hp._l2_penalty = d["l2_penalty"]
+        hp._loss = Loss(d["loss"])
+        hp._optimizer = Optimizer(d["optimizer"])
+        hp._parallelism = Parallelism(d["parallelism"])
+        hp._num_threads = d["num_threads"]
+        hp._num_epochs = d["num_epochs"]
+        hp._batch_size = d["batch_size"]
+        hp._seed = d["seed"]
+        hp._packed = d.get("packed", False)
+        hp._table_dtype = d.get("table_dtype", "float32")
+        hp._sparse_updates = d.get("sparse_updates")
+        hp._lr_schedule = d.get("lr_schedule", "constant")
+        hp._embedding_init_scale = d.get("embedding_init_scale", 1.0)
+        return hp
+
+
+# -- host-side request preparation (vectorised numpy) -------------------------
+
+
+def _flatten(histories: Sequence[Sequence[int]]) -> Tuple[np.ndarray, np.ndarray]:
+    """All histories' ids end to end, and each history's length."""
+    lens = np.fromiter((len(h) for h in histories), dtype=np.int64, count=len(histories))
+    flat = np.fromiter(
+        itertools.chain.from_iterable(histories), dtype=np.int64, count=int(lens.sum())
+    )
+    return flat, lens
+
+
+def _pad_histories(flat: np.ndarray, lens: np.ndarray, t: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``inputs [U, T]``: each history's last ``t`` ids, left-aligned and
+    zero-padded; ``lengths [U]``. An empty history reads as ``[0]`` (the
+    reference's index inputs default to item 0)."""
+    keep = np.minimum(lens, t)
+    cols = np.arange(t)
+    mask = cols < keep[:, None]
+    src = (np.cumsum(lens) - keep)[:, None] + cols
+    inputs = np.zeros((len(lens), t), dtype=np.int64)
+    inputs[mask] = flat[src[mask]]
+    return inputs, np.maximum(keep, 1)
+
+
+def _seen_rows(flat: np.ndarray, lens: np.ndarray, n: int, width: int) -> np.ndarray:
+    """``[U, width]`` seen ids sorted ascending per row; empty slots hold
+    ``n`` (one past the catalog: never a candidate)."""
+    seen = np.full((len(lens), width), n, dtype=np.int64)
+    seen[np.arange(width) < lens[:, None]] = flat
+    seen.sort(axis=1)
+    return seen
+
+
+# -- exact top-k ---------------------------------------------------------------
+
+
+def topk_small(
+    table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense ``[U, N]`` scores, seen items set to ``-inf``, one top-k."""
+    tab = table.to(torch.float32)
+    n = tab.shape[0]
+    scores = reps @ tab[:, :-1].T + tab[:, -1]
+    # Padding slots hold n: a masked scatter skips them (and any id
+    # outside the catalog) instead of indexing past the end.
+    valid = (seen >= 0) & (seen < n)
+    rows = torch.arange(reps.shape[0], device=reps.device)[:, None].expand_as(seen)
+    scores[rows[valid], seen[valid]] = float("-inf")
+    return torch.topk(scores, min(k, n), dim=1)
+
+
+def topk_streamed(
+    table: torch.Tensor,
+    reps: torch.Tensor,
+    seen: torch.Tensor,
+    k: int,
+    *,
+    serve_chunk: int,
+    group_target: int,
+    sub_target: int,
+    merge_buffer_bytes: int,
+    submax_buffer_bytes: int,
+    phase2_buffer_bytes: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact two-phase top-k over a catalog larger than one chunk.
+
+    Phase 1 keeps the top ``kk = k + S`` groups by group maximum: a group
+    holding one of the true top-``kk`` items must rank there, because at
+    most ``kk - 1`` items (hence groups) beat its maximum. With the
+    single-pass merge the winners are refined one level down: among the
+    winning groups' subgroups, the top ``kk`` by subgroup maximum (the same
+    argument). Phase 2 re-scores every candidate item in f32, drops seen ids
+    and takes the top ``k``: at most ``S`` of the top ``kk`` are seen, so
+    ``k`` survive. Equal scores exactly at the k-th value may pick other
+    ids than a dense sort; values are exact.
+    """
+    n, c_param = table.shape
+    dev = table.device
+    u = reps.shape[0]
+    num_chunks = -(-n // serve_chunk)
+    group = min(group_target, serve_chunk)
+    while serve_chunk % group:
+        group -= 1  # the largest width <= target that divides the chunk
+    groups_per_chunk = serve_chunk // group
+    kk = min(k + seen.shape[1], n)
+    k_out = min(k, n)
+    reps_aug = torch.cat([reps, reps.new_ones((u, 1))], dim=1).contiguous()
+    if not groupmax_supported(serve_chunk, c_param, u, group):
+        raise ValueError(
+            f"the score+group-max kernel does not take group width {group} "
+            f"(serve chunk {serve_chunk}, row width {c_param})"
+        )
+    total_groups = num_chunks * groups_per_chunk
+    single_pass = total_groups * u * 8 <= merge_buffer_bytes
+
+    # Subgroup width for the final selection (single-pass merge only): the
+    # narrowest kernel width >= sub_target that divides the group and whose
+    # maxima stack fits the budget.
+    sub = group
+    if single_pass:
+        for d in range(max(1, sub_target), group + 1):
+            if group % d:
+                continue
+            if num_chunks * (serve_chunk // d) * u * 4 > submax_buffer_bytes:
+                continue
+            if not groupmax_supported(serve_chunk, c_param, u, d):
+                continue
+            sub = d
+            break
+    r = group // sub
+
+    if single_pass:
+        # One kernel call streams the whole table once.
+        if r > 1:
+            allsub, gmax = score_submax_groupmax(table, reps_aug, 0, n, sub, group)
+        else:
+            allsub = score_groupmax(table, reps_aug, 0, n, sub)
+            gmax = allsub
+        w1 = min(kk, gmax.shape[0])
+        gids = torch.topk(gmax, w1, dim=0).indices.T  # [U, w1]
+        if r > 1:
+            sids = (gids[:, :, None] * r + torch.arange(r, device=dev)).reshape(u, w1 * r)
+            svals = torch.gather(allsub, 0, sids.T).T  # [U, w1 * r]
+            sp = torch.topk(svals, min(kk, w1 * r), dim=1).indices
+            gids = torch.gather(sids, 1, sp)
+    else:
+        # Running merge, chunk by chunk (sub == group here). Unfilled slots
+        # hold distinct group ids past the catalog: never a real candidate.
+        vals = torch.full((u, kk), float("-inf"), device=dev)
+        gids = (total_groups + torch.arange(kk, device=dev)).expand(u, kk)
+        offsets = torch.arange(serve_chunk, device=dev)
+        for ch in range(num_chunks):
+            lo = ch * serve_chunk
+            ids = (lo + offsets).clamp_(max=n - 1)  # clip: the tail repeats row n-1
+            tc = table.index_select(0, ids)
+            gm = score_groupmax(tc, reps_aug, lo, n, group)[:groups_per_chunk]
+            cv, cp = torch.topk(gm, min(kk, groups_per_chunk), dim=0)
+            mv = torch.cat([vals, cv.T], dim=1)
+            mg = torch.cat([gids, ch * groups_per_chunk + cp.T], dim=1)
+            vals, p = torch.topk(mv, kk, dim=1)
+            gids = torch.gather(mg, 1, p)
+
+    # Phase 2: re-score the candidates of the winning (sub)groups, a few
+    # slots at a time so the gathered rows stay under the budget.
+    w = gids.shape[1]
+    slot_bs = max(1, min(w, phase2_buffer_bytes // (u * sub * c_param * 4)))
+    arange_sub = torch.arange(sub, device=dev)
+    cand_parts, score_parts = [], []
+    for s0 in range(0, w, slot_bs):
+        ids = (gids[:, s0 : s0 + slot_bs, None] * sub + arange_sub).reshape(u, -1)
+        rows_g = table.index_select(0, ids.clamp(max=n - 1).reshape(-1))
+        rows_g = rows_g.to(torch.float32).reshape(u, ids.shape[1], c_param)
+        score_parts.append(torch.bmm(rows_g, reps_aug[:, :, None])[:, :, 0])
+        cand_parts.append(ids)
+    cand = torch.cat(cand_parts, dim=1)
+    cscores = torch.cat(score_parts, dim=1)
+    cscores.masked_fill_(cand >= n, float("-inf"))
+    # Drop seen candidates by id (broadcast compare against the seen rows).
+    cscores.masked_fill_((cand[:, :, None] == seen[:, None, :]).any(dim=-1), float("-inf"))
+    v, p = torch.topk(cscores, k_out, dim=1)
+    return v, torch.gather(cand, 1, p)
+
+
+def topk_streamed_bigseen(
+    table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int, *, serve_chunk: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wide seen lists: chunked dense scoring with a per-chunk seen mask and
+    a running top-k merge. Plain PyTorch, correct for any seen width."""
+    n = table.shape[0]
+    dev = table.device
+    u = reps.shape[0]
+    kk = min(k, n)
+    rows = torch.arange(u, device=dev)[:, None].expand_as(seen)
+    offsets = torch.arange(serve_chunk, device=dev)
+    vals = torch.full((u, kk), float("-inf"), device=dev)
+    idx = torch.arange(kk, device=dev).expand(u, kk)  # distinct: an all-masked user
+    for ch in range(-(-n // serve_chunk)):
+        lo = ch * serve_chunk
+        ids = lo + offsets
+        tc = table.index_select(0, ids.clamp(max=n - 1)).to(torch.float32)
+        scores = reps @ tc[:, :-1].T + tc[:, -1]
+        scores.masked_fill_((ids >= n)[None, :], float("-inf"))
+        local = seen - lo
+        hit = (local >= 0) & (local < serve_chunk)  # seen ids inside this chunk
+        scores[rows[hit], local[hit]] = float("-inf")
+        cv, cp = torch.topk(scores, min(kk, serve_chunk), dim=1)
+        mv = torch.cat([vals, cv], dim=1)
+        mi = torch.cat([idx, lo + cp], dim=1)
+        vals, p = torch.topk(mv, kk, dim=1)
+        idx = torch.gather(mi, 1, p)
+    return vals, idx
+
+
+class ImplicitSequenceModel:
+    """Base class of the sequence models: user representations, ``predict``
+    and ``recommend_batch``. Subclasses provide the tower (``_init_tower``,
+    ``_tower_fn``). All parameters live on ``device``, which the caller
+    names; nothing runs anywhere else."""
+
+    # Catalog chunk of the streamed top-k (the JAX package's value).
+    _SERVE_ITEM_CHUNK = 131072
+    # Above this seen-list width, the k+S candidate post-filter stops paying.
+    _SERVE_MAX_POSTFILTER_SEEN = 128
+    # Single-pass phase-1 merge when 2x the group-maxima stack fits.
+    _MERGE_BUFFER_BYTES = 6 << 30
+    # Phase-2 rescoring: gathered f32 candidate rows per slot batch.
+    _PHASE2_BUFFER_BYTES = 1_200_000_000
+    # Phase-1 group width and the subgroup width of the refinement.
+    _GROUP_TARGET = 128
+    _SUBGROUP_TARGET = 32
+    # Largest subgroup-maxima stack the refinement may allocate.
+    _SUBMAX_BUFFER_BYTES = 6 << 30
+
+    def __init__(self, hyper: Hyperparameters, device: "torch.device | str"):
+        device = torch.device(device)
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"cannot build a model on {device}: this PyTorch has no usable CUDA device"
+                )
+            # Full f32 products for the plain matmuls of serving (the dense
+            # top-k and phase 2): phase 1's maxima must bound the scores
+            # phase 2 recomputes, and TF32 keeps ~3 decimal digits.
+            torch.backends.cuda.matmul.allow_tf32 = False
+        elif device.type != "cpu":
+            raise ValueError(f"models run on cuda or cpu, not {device}")
+        self.hyper = hyper
+        self.device = device
+        gen = torch.Generator(device=device).manual_seed(hyper._seed)
+        params = init_embedding_params(
+            gen, hyper._num_items, hyper._item_embedding_dim, device,
+            dtype=hyper._table_dtype, init_scale=hyper._embedding_init_scale,
+        )
+        params["tower"] = self._init_tower(gen, hyper._item_embedding_dim)
+        self._params = params
+
+    # -- subclass hooks -------------------------------------------------------
+
+    def _init_tower(self, generator: torch.Generator, dim: int) -> Dict:
+        raise NotImplementedError
+
+    def _tower_fn(self):
+        """``(tower_params, x [B, T, D]) -> hidden [B, T, D]``."""
+        raise NotImplementedError
+
+    # -- parameters -----------------------------------------------------------
+
+    @property
+    def item_embeddings(self) -> np.ndarray:
+        """Item embedding matrix ``[num_items, dim]`` (f32 copy)."""
+        return self._params["item_table"][:, :-1].to(torch.float32).cpu().numpy()
+
+    @property
+    def item_biases(self) -> np.ndarray:
+        """Item bias vector ``[num_items]`` (f32 copy)."""
+        return self._params["item_table"][:, -1].to(torch.float32).cpu().numpy()
+
+    def load_numpy_params(self, tree: dict) -> None:
+        """Load parameters given as numpy arrays in the JAX package's tree
+        (``{"item_table": [N, D+1], "tower": {...}}``) onto this model's
+        device. Shapes must match the model's; the table keeps the model's
+        storage dtype."""
+        new = params_from_numpy(tree, self.device)
+        old_tower = self._params["tower"]
+        if tuple(new["item_table"].shape) != tuple(self._params["item_table"].shape):
+            raise ValueError(
+                f"item_table {tuple(new['item_table'].shape)} does not match "
+                f"{tuple(self._params['item_table'].shape)}"
+            )
+        if set(new["tower"]) != set(old_tower) or any(
+            new["tower"][name].shape != old_tower[name].shape for name in old_tower
+        ):
+            raise ValueError("tower parameters do not match this model's")
+        new["item_table"] = new["item_table"].to(self._params["item_table"].dtype)
+        new["tower"] = {name: v.to(torch.float32) for name, v in new["tower"].items()}
+        self._params = new
+
+    # -- serving --------------------------------------------------------------
+
+    def _representations(self, flat: np.ndarray, lens: np.ndarray) -> torch.Tensor:
+        """Batched user representations ``[U, D]`` (f32, on the device) of
+        the histories given as :func:`_flatten` output (reference
+        ``src/models/sequence_model.rs:182-211``): the tower over each
+        history's last ``max_sequence_length`` items, final state."""
+        t = self.hyper._max_sequence_length
+        n = self.hyper._num_items
+        inputs, lengths = _pad_histories(flat, lens, t)
+        if inputs.size and (inputs.min() < 0 or inputs.max() >= n):
+            raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
+        u = len(lens)
+        idx = torch.from_numpy(inputs).to(self.device).reshape(-1)
+        emb = self._params["item_table"][:, :-1].index_select(0, idx).to(torch.float32)
+        hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1))
+        last = torch.from_numpy(lengths - 1).to(self.device)
+        return hidden[torch.arange(u, device=self.device), last]
+
+    def user_representation(self, item_ids: Sequence[int]) -> ImplicitUser:
+        """User representation from an interaction history (``src/lib.rs:105-108``)."""
+        return self.user_representations([item_ids])[0]
+
+    def user_representations(self, histories: Sequence[Sequence[int]]) -> List[ImplicitUser]:
+        """Batched :meth:`user_representation`: one tower run for all users."""
+        reps = self._representations(*_flatten(histories)).cpu().numpy()
+        return [ImplicitUser(user_embedding=r) for r in reps]
+
+    def recommend(self, item_ids: Sequence[int], k: int = 10, exclude_seen: bool = True) -> List[int]:
+        """Top-``k`` next items for one history (see :meth:`recommend_batch`)."""
+        return self.recommend_batch([item_ids], k=k, exclude_seen=exclude_seen)[0]
+
+    def recommend_batch(
+        self,
+        histories: Sequence[Sequence[int]],
+        k: int = 10,
+        exclude_seen: bool = True,
+        return_scores: bool = False,
+    ):
+        """Exact top-``k`` next items for many histories: representations,
+        full-catalog scoring, seen-item exclusion (with ``exclude_seen``)
+        and the top-k, all on the device. ``return_scores=True`` also
+        returns the items' scores ``dot(user, emb) + bias`` as ``[U, k]``."""
+        if not len(histories):
+            return ([], np.zeros((0, k), np.float32)) if return_scores else []
+        flat, lens = _flatten(histories)
+        reps = self._representations(flat, lens)
+        n = self.hyper._num_items
+        if exclude_seen:
+            seen_np = _seen_rows(flat, lens, n, max(int(lens.max()), 1))
+        else:
+            seen_np = np.full((len(lens), 1), n, dtype=np.int64)
+        seen = torch.from_numpy(seen_np).to(self.device)
+        vals, idx = self._topk(reps, seen, min(k, n))
+        ids = idx.cpu().numpy().tolist()
+        return (ids, vals.cpu().numpy()) if return_scores else ids
+
+    def _topk(self, reps: torch.Tensor, seen: torch.Tensor, k: int):
+        table = self._params["item_table"]
+        serve_chunk = self._SERVE_ITEM_CHUNK
+        if table.shape[0] <= serve_chunk:
+            return topk_small(table, reps, seen, k)
+        if seen.shape[1] > self._SERVE_MAX_POSTFILTER_SEEN:
+            return topk_streamed_bigseen(table, reps, seen, k, serve_chunk=serve_chunk)
+        return topk_streamed(
+            table, reps, seen, k,
+            serve_chunk=serve_chunk,
+            group_target=self._GROUP_TARGET,
+            sub_target=self._SUBGROUP_TARGET,
+            merge_buffer_bytes=self._MERGE_BUFFER_BYTES,
+            submax_buffer_bytes=self._SUBMAX_BUFFER_BYTES,
+            phase2_buffer_bytes=self._PHASE2_BUFFER_BYTES,
+        )
+
+    def predict(self, user: ImplicitUser, item_ids: "Sequence[int] | None" = None) -> np.ndarray:
+        """Score ``item_ids`` for the user: ``dot(user, emb) + bias``
+        (``src/models/lstm.rs:338-350``); ``None`` scores the whole catalog.
+        Raises :class:`InvalidPredictionValue` on ids outside the catalog and
+        on non-finite scores (``src/models/sequence_model.rs:222-230``)."""
+        n = self.hyper._num_items
+        ids = np.arange(n) if item_ids is None else np.asarray(item_ids, dtype=np.int64)
+        if ids.size and (ids.min() < 0 or ids.max() >= n):
+            raise InvalidPredictionValue(f"item_ids outside [0, {n}).")
+        rows = self._params["item_table"].index_select(
+            0, torch.from_numpy(ids.reshape(-1)).to(self.device)
+        ).to(torch.float32)
+        rep = torch.as_tensor(
+            np.asarray(user.user_embedding, dtype=np.float32), device=self.device
+        )
+        scores = (rows[:, :-1] @ rep + rows[:, -1]).cpu().numpy()
+        if not np.all(np.isfinite(scores)):
+            raise InvalidPredictionValue()
+        return scores
+
+    def clone(self) -> "ImplicitSequenceModel":
+        """Independent copy on the same device: hyperparameters and
+        parameters (deep-copied)."""
+        hyper = type(self.hyper).from_dict(self.hyper.to_dict())
+        m = hyper.build(self.device)
+        m._params = {
+            "item_table": self._params["item_table"].clone(),
+            "tower": {name: v.clone() for name, v in self._params["tower"].items()},
+        }
+        return m

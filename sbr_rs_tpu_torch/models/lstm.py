@@ -1,0 +1,72 @@
+"""LSTM-based implicit-feedback sequence model. Counterpart of
+:mod:`sbr_rs_tpu.models.lstm`.
+
+Reference: ``src/models/lstm.rs`` -- an LSTM over the user's interaction
+sequence predicts the next item; Normal and Coupled (forget = 1 - input)
+cell variants (``src/models/lstm.rs:28-35``).
+"""
+
+from __future__ import annotations
+
+import enum
+import functools
+from typing import Dict
+
+import torch
+
+from ..ops.lstm_kernels import lstm_apply_kernel
+from . import base
+from .towers import init_lstm
+
+
+class LSTMVariant(enum.Enum):
+    """Type of LSTM layer to use (reference ``src/models/lstm.rs:28-35``)."""
+
+    NORMAL = "normal"
+    COUPLED = "coupled"
+
+
+class Hyperparameters(base.Hyperparameters):
+    """Hyperparameters for the :class:`ImplicitLSTMModel`
+    (reference ``src/models/lstm.rs:38-172``). Default variant: Coupled
+    (``src/models/lstm.rs:63``)."""
+
+    def __init__(self, num_items: int, max_sequence_length: int):
+        super().__init__(num_items, max_sequence_length)
+        self._lstm_variant = LSTMVariant.COUPLED
+
+    def lstm_variant(self, variant: LSTMVariant) -> "Hyperparameters":
+        self._lstm_variant = variant
+        return self
+
+    def to_dict(self) -> dict:
+        d = super().to_dict()
+        d["lstm_variant"] = self._lstm_variant.value
+        d["model_type"] = "lstm"
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Hyperparameters":
+        hp = cls._from_dict_common(d)
+        hp._lstm_variant = LSTMVariant(d["lstm_variant"])
+        return hp
+
+    def build(self, device: "torch.device | str") -> "ImplicitLSTMModel":
+        """Build a model on ``device`` (reference ``src/models/lstm.rs:197-201``)."""
+        return ImplicitLSTMModel(self, device)
+
+
+class ImplicitLSTMModel(base.ImplicitSequenceModel):
+    """An LSTM-based sequence model for implicit feedback
+    (reference ``src/models/lstm.rs:385-416``). The tower is
+    :func:`lstm_apply_kernel` on every device: the recurrence is the CUDA
+    kernel for a model on ``cuda``, the plain PyTorch loop on ``cpu``."""
+
+    def _coupled(self) -> bool:
+        return self.hyper._lstm_variant == LSTMVariant.COUPLED
+
+    def _init_tower(self, generator: torch.Generator, dim: int) -> Dict:
+        return init_lstm(generator, dim, self._coupled(), self.device)
+
+    def _tower_fn(self):
+        return functools.partial(lstm_apply_kernel, coupled=self._coupled())

@@ -1,0 +1,191 @@
+"""Catalog scoring fused with a group-max: a CUDA kernel and its plain version.
+
+Counterpart of the serving half of :mod:`sbr_rs_tpu.ops.pallas_topk`
+(phase 1 of the exact two-phase top-k in ``models/base.py``). Both entry
+points score table rows ``[C, Cc]`` (f32, or bf16 upcast inside the kernel)
+against bias-augmented user representations ``reps_aug [U, Cc]`` (f32),
+set a score to ``-inf`` unless its row is inside the catalog
+(``lo + i < n``) and inside the call (``i < C``), and keep only group
+maxima, so the ``[C, U]`` score matrix never reaches device memory:
+
+* :func:`score_groupmax` -- maxima over groups of ``group`` rows;
+* :func:`score_submax_groupmax` -- maxima over subgroups of ``sub`` rows
+  and groups of ``group`` rows, from one pass.
+
+Both return :func:`groupmax_rows` rows, the rows past ``C`` all ``-inf``,
+as the TPU functions do. For CUDA tensors they launch
+``csrc/score_groupmax.cu`` and raise on input it does not take; for CPU
+tensors, and only for those, they run the plain versions
+(:func:`score_groupmax_plain`, :func:`score_submax_groupmax_plain`).
+Products are full f32 on both routes: no TF32, no tensor cores.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+_R_BLK = 2048  # output rows pad to this many table rows (the TPU row block)
+_WIDTHS = (8, 16, 32, 64, 128)
+
+
+def groupmax_supported(c: int, cc: int, u: int, group: int) -> bool:
+    """Shapes the kernel takes: a group width in {8, 16, 32, 64, 128} (it
+    divides the kernel's 128-row tile), ``Cc <= 512`` and at least one
+    user. Any ``c`` works: ragged tails are masked inside the kernel."""
+    return group in _WIDTHS and cc <= 512 and u >= 1
+
+
+def groupmax_rows(c: int, group: int) -> int:
+    """Rows :func:`score_groupmax` returns for ``c`` table rows."""
+    return -(-c // _R_BLK) * _R_BLK // group
+
+
+def score_groupmax_plain(
+    chunk_rows: torch.Tensor, reps_aug: torch.Tensor, lo: int, n: int, group: int
+) -> torch.Tensor:
+    """``[ceil(C / group), U]`` group maxima through a ``[C, U]`` score
+    matrix (the formulation of ``score_groupmax_xla``; a ragged tail is
+    padded with ``-inf`` rows up to a whole group)."""
+    c = chunk_rows.shape[0]
+    u = reps_aug.shape[0]
+    st = chunk_rows.to(torch.float32) @ reps_aug.T  # [C, U]
+    ids = lo + torch.arange(c, device=st.device)
+    st.masked_fill_((ids >= n)[:, None], float("-inf"))
+    pad = -c % group
+    if pad:
+        st = torch.cat([st, st.new_full((pad, u), float("-inf"))])
+    return st.reshape(-1, group, u).amax(dim=1)
+
+
+def score_submax_groupmax_plain(
+    chunk_rows: torch.Tensor,
+    reps_aug: torch.Tensor,
+    lo: int,
+    n: int,
+    sub: int,
+    group: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(subgroup maxima, group maxima)`` (the formulation of
+    ``score_submax_groupmax_xla``); a ragged tail pads to a whole group."""
+    c = chunk_rows.shape[0]
+    pad = -c % group
+    smax = score_groupmax_plain(chunk_rows, reps_aug, lo, n, sub)
+    if pad:
+        # Rows past C up to the group boundary: -inf subgroups.
+        extra = (c + pad) // sub - smax.shape[0]
+        smax = torch.cat([smax, smax.new_full((extra, smax.shape[1]), float("-inf"))])
+    gmax = smax.reshape(-1, group // sub, smax.shape[1]).amax(dim=1)
+    return smax, gmax
+
+
+def _pad_to(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with ``-inf`` rows appended up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_full((rows - x.shape[0], x.shape[1]), float("-inf"))])
+
+
+def _launch(chunk_rows, reps_aug, lo, n, w1, w2, name):
+    """Checks the operands, allocates the outputs and launches the kernel
+    (one output at width ``w1``, or two when ``w2`` is given)."""
+    c, cc = chunk_rows.shape
+    u = reps_aug.shape[0]
+    dev = chunk_rows.device
+    if reps_aug.device != dev:
+        raise ValueError(f"{name}: reps_aug is on {reps_aug.device}, rows on {dev}")
+    if chunk_rows.dtype == torch.float32:
+        fn = _build.library().sbr_score_groupmax_f32
+    elif chunk_rows.dtype == torch.bfloat16:
+        fn = _build.library().sbr_score_groupmax_bf16
+    else:
+        raise ValueError(f"{name}: rows must be float32 or bfloat16, got {chunk_rows.dtype}")
+    if reps_aug.dtype != torch.float32 or tuple(reps_aug.shape) != (u, cc):
+        raise ValueError(
+            f"{name}: reps_aug must be float32 [{u}, {cc}], got "
+            f"{reps_aug.dtype} {tuple(reps_aug.shape)}"
+        )
+    if not (chunk_rows.is_contiguous() and reps_aug.is_contiguous()):
+        raise ValueError(f"{name}: rows and reps_aug must be contiguous")
+    out1 = torch.empty((groupmax_rows(c, w1), u), dtype=torch.float32, device=dev)
+    out2 = None
+    if w2 is not None:
+        out2 = torch.empty((groupmax_rows(c, w2), u), dtype=torch.float32, device=dev)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(
+            chunk_rows.data_ptr(), reps_aug.data_ptr(), out1.data_ptr(),
+            None if out2 is None else out2.data_ptr(),
+            c, cc, u, int(lo), int(n), w1, w2 or 0, int(out2 is not None), stream,
+        )
+    _build.check(status, name)
+    return out1, out2
+
+
+def _route(chunk_rows: torch.Tensor, name: str) -> bool:
+    """True for the kernel (CUDA tensors), False for the plain version (CPU
+    tensors); raises for any other device."""
+    if chunk_rows.device.type == "cuda":
+        return True
+    if chunk_rows.device.type == "cpu":
+        return False
+    raise ValueError(f"{name} runs on cuda or cpu, not {chunk_rows.device}")
+
+
+def score_groupmax(
+    chunk_rows: torch.Tensor, reps_aug: torch.Tensor, lo: int, n: int, group: int
+) -> torch.Tensor:
+    """``[groupmax_rows(C, group), U]`` group maxima (module docstring).
+    ``chunk_rows`` may be the whole catalog (``lo = 0``) or any slab of it.
+    ``score_groupmax.launches`` counts the kernel's launches."""
+    c, cc = chunk_rows.shape
+    u = reps_aug.shape[0]
+    if not groupmax_supported(c, cc, u, group):
+        raise ValueError(f"score_groupmax does not take group={group}, Cc={cc}, U={u}")
+    if not _route(chunk_rows, "score_groupmax"):
+        out = score_groupmax_plain(chunk_rows, reps_aug, lo, n, group)
+        return _pad_to(out, groupmax_rows(c, group))
+    out, _ = _launch(chunk_rows, reps_aug, lo, n, group, None, "score_groupmax")
+    score_groupmax.launches += 1
+    return out
+
+
+def score_submax_groupmax(
+    chunk_rows: torch.Tensor,
+    reps_aug: torch.Tensor,
+    lo: int,
+    n: int,
+    sub: int,
+    group: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``([groupmax_rows(C, sub), U], [groupmax_rows(C, group), U])``
+    subgroup and group maxima from one pass; ``sub`` divides ``group``.
+    ``score_submax_groupmax.launches`` counts the kernel's launches."""
+    c, cc = chunk_rows.shape
+    u = reps_aug.shape[0]
+    if group % sub or sub >= group:
+        raise ValueError(f"sub={sub} must be a proper divisor of group={group}")
+    if not (groupmax_supported(c, cc, u, sub) and groupmax_supported(c, cc, u, group)):
+        raise ValueError(
+            f"score_submax_groupmax does not take sub={sub}, group={group}, Cc={cc}, U={u}"
+        )
+    if not _route(chunk_rows, "score_submax_groupmax"):
+        smax, gmax = score_submax_groupmax_plain(chunk_rows, reps_aug, lo, n, sub, group)
+        return _pad_to(smax, groupmax_rows(c, sub)), _pad_to(gmax, groupmax_rows(c, group))
+    smax, gmax = _launch(chunk_rows, reps_aug, lo, n, sub, group, "score_submax_groupmax")
+    score_submax_groupmax.launches += 1
+    return smax, gmax
+
+
+score_groupmax.launches = 0
+score_submax_groupmax.launches = 0

@@ -1,0 +1,135 @@
+"""Package-level properties of the port (``sbr_rs_tpu_torch``), on the CPU:
+it never imports jax, its kernel wrappers take the plain versions for CPU
+tensors only (launch counters stay 0), it never falls back from CUDA, and
+its hyperparameters and parameters round-trip with the JAX package's."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from sbr_rs_tpu.models import lstm as jax_lstm
+from sbr_rs_tpu_torch.models import lstm
+from sbr_rs_tpu_torch.ops import _build, lstm_kernels, topk_kernels
+from sbr_rs_tpu_torch.utils.convert import params_from_numpy, params_to_numpy
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_import_leaves_jax_out():
+    code = "import sys, sbr_rs_tpu_torch; assert 'jax' not in sys.modules, sorted(sys.modules)"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(import|from) (jax|sbr_rs_tpu)\b", re.MULTILINE)
+    files = sorted((ROOT / "sbr_rs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        assert not pattern.search(f.read_text()), f
+
+
+@pytest.fixture
+def zero_counters():
+    wrappers = (lstm_kernels.lstm_fwd, topk_kernels.score_groupmax, topk_kernels.score_submax_groupmax)
+    for fn in wrappers:
+        fn.launches = 0
+    yield wrappers
+    for fn in wrappers:
+        fn.launches = 0
+
+
+def test_cpu_tensors_take_the_plain_versions(zero_counters):
+    rng = np.random.default_rng(0)
+    xz = torch.from_numpy(rng.normal(size=(5, 3, 4 * 8)).astype(np.float32))
+    w_h = torch.from_numpy(rng.normal(size=(8, 4 * 8)).astype(np.float32))
+    keep = torch.ones((5, 3, 1))
+    for got, want in zip(lstm_kernels.lstm_fwd(xz, w_h, keep, False),
+                         lstm_kernels.lstm_fwd_plain(xz, w_h, keep, False)):
+        assert torch.equal(got, want)
+    rows = torch.from_numpy(rng.normal(size=(3000, 9)).astype(np.float32))
+    reps = torch.from_numpy(rng.normal(size=(5, 9)).astype(np.float32))
+    got = topk_kernels.score_groupmax(rows, reps, 0, 2500, 32)
+    assert torch.equal(got[: 3000 // 32 + 1], topk_kernels.score_groupmax_plain(rows, reps, 0, 2500, 32))
+    assert torch.isneginf(got[3000 // 32 + 1 :]).all()
+    smax, gmax = topk_kernels.score_submax_groupmax(rows, reps, 0, 2500, 32, 128)
+    assert smax.shape == (2048 * 2 // 32, 5) and gmax.shape == (2048 * 2 // 128, 5)
+    model = lstm.Hyperparameters(300, 4).embedding_dim(8).from_seed(0).build("cpu")
+    assert len(model.recommend_batch([[1, 2], []], k=3)) == 2
+    assert all(fn.launches == 0 for fn in zero_counters)
+
+
+def test_no_fallback_from_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        lstm.Hyperparameters(100, 4).embedding_dim(8).build(torch.device("cuda"))
+    with pytest.raises(ValueError):
+        lstm.Hyperparameters(100, 4).embedding_dim(8).build(torch.device("meta"))
+    meta = torch.empty((4096, 9), device="meta")
+    with pytest.raises(ValueError):
+        topk_kernels.score_groupmax(meta, torch.empty((2, 9), device="meta"), 0, 4096, 32)
+    with pytest.raises(ValueError):
+        lstm_kernels.lstm_fwd(torch.empty((2, 3, 32), device="meta"), torch.empty((8, 32)),
+                              torch.empty((2, 3, 1)), False)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(os, "access", lambda *a, **k: False)
+    with pytest.raises(_build.KernelCompileError):
+        _build.find_nvcc()
+
+
+def test_hyperparameters_round_trip_with_jax():
+    jd = (
+        jax_lstm.Hyperparameters(1234, 16)
+        .embedding_dim(24)
+        .lstm_variant(jax_lstm.LSTMVariant.NORMAL)
+        .table_dtype("bfloat16")
+        .lr_schedule("cosine")
+        .from_seed(7)
+        .to_dict()
+    )
+    hp = lstm.Hyperparameters.from_dict(jd)
+    assert hp._lstm_variant is lstm.LSTMVariant.NORMAL
+    d = hp.to_dict()
+    assert d == {k: v for k, v in jd.items() if k != "use_pallas"}
+    assert jax_lstm.Hyperparameters.from_dict(d).to_dict() == jd
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+def test_params_round_trip(dtype):
+    rng = np.random.default_rng(1)
+    tree = {
+        "item_table": rng.normal(size=(50, 9)).astype(dtype),
+        "tower": {
+            "w_x": rng.normal(size=(8, 24)).astype(np.float32),
+            "w_h": rng.normal(size=(8, 24)).astype(np.float32),
+            "b": rng.normal(size=(24,)).astype(np.float32),
+        },
+    }
+    back = params_to_numpy(params_from_numpy(tree, "cpu"))
+    assert back["item_table"].dtype == tree["item_table"].dtype
+    np.testing.assert_array_equal(back["item_table"], tree["item_table"])
+    for name, v in tree["tower"].items():
+        np.testing.assert_array_equal(back["tower"][name], v)
+
+
+def test_load_numpy_params_and_clone():
+    model = lstm.Hyperparameters(50, 4).embedding_dim(8).from_seed(3).build("cpu")
+    tree = params_to_numpy(model)
+    tree["item_table"] = tree["item_table"] + 1.0
+    model.load_numpy_params(tree)
+    np.testing.assert_array_equal(model.item_biases, tree["item_table"][:, -1])
+    twin = model.clone()
+    hs = [[1, 2, 3], [4]]
+    assert twin.recommend_batch(hs, k=5) == model.recommend_batch(hs, k=5)
+    twin._params["item_table"].zero_()
+    assert model.item_embeddings.any()
+    tree["tower"]["w_h"] = tree["tower"]["w_h"][:, :-1]
+    with pytest.raises(ValueError):
+        model.load_numpy_params(tree)
