@@ -1,26 +1,58 @@
 """sbr-rs-tpu on PyTorch and CUDA: the port of :mod:`sbr_rs_tpu` to NVIDIA
 Hopper (H100), beside the JAX package it is held against.
 
-So far it serves the LSTM family: user representations, ``predict`` and
-the exact batched top-k of ``recommend_batch``, with the LSTM recurrence and
+So far it trains and serves the LSTM family: ``fit`` (dense table
+updates), user representations, ``predict`` and the exact batched top-k of
+``recommend_batch``, with the LSTM recurrence (forward and backward) and
 the catalog score + group-max as hand-written CUDA kernels (``csrc/``).
-Training is not ported yet. This package imports torch and numpy, never jax.
+This package imports torch and numpy, never jax.
 
 Example::
 
+    import numpy as np
     import torch
-    from sbr_rs_tpu_torch.models import lstm
+    import sbr_rs_tpu_torch as sbr
+    from sbr_rs_tpu_torch.models import Loss, Optimizer, lstm
 
+    data = sbr.datasets.synthetic_interactions(943, 1682, 106, rng=0)
+    train, test = sbr.data.user_based_split(data, np.random.default_rng(42), 0.2)
     model = (
-        lstm.Hyperparameters(10_000_000, 32)
-        .embedding_dim(127)
+        lstm.Hyperparameters(data.num_items, 32)
+        .embedding_dim(32)
+        .learning_rate(0.16)
+        .l2_penalty(4e-4)
         .lstm_variant(lstm.LSTMVariant.NORMAL)
+        .loss(Loss.WARP)
+        .optimizer(Optimizer.ADAGRAD)
+        .batch_size(256)
+        .packed(True)
         .from_seed(42)
         .build(torch.device("cuda"))
     )
+    loss = model.fit(train.to_compressed())
     ids = model.recommend_batch([[1, 2, 3], [42]], k=10)
 """
 
-from . import errors, models, ops
+from . import data, datasets, errors, models, ops
+from .errors import (
+    DatasetError,
+    FittingError,
+    InvalidPredictionValue,
+    NoInteractions,
+    NonFiniteLoss,
+    PredictionError,
+)
 
-__all__ = ["errors", "models", "ops"]
+__all__ = [
+    "data",
+    "datasets",
+    "errors",
+    "models",
+    "ops",
+    "DatasetError",
+    "FittingError",
+    "InvalidPredictionValue",
+    "NoInteractions",
+    "NonFiniteLoss",
+    "PredictionError",
+]

@@ -1,4 +1,5 @@
-"""Models module: shared enums and the user-representation type.
+"""Models module: shared enums, the user-representation type, the LSTM
+family (:mod:`.lstm`) and the training engine (:mod:`.engine`).
 
 Copies of the jax-free pieces of :mod:`sbr_rs_tpu.models` (importing that
 package would load jax). The enum values are the JAX package's, so the
@@ -44,6 +45,6 @@ class Parallelism(enum.Enum):
     SYNCHRONOUS = "synchronous"
 
 
-from . import lstm  # noqa: E402  (re-exported submodule)
+from . import engine, lstm  # noqa: E402  (re-exported submodules)
 
-__all__ = ["ImplicitUser", "Loss", "Optimizer", "Parallelism", "lstm"]
+__all__ = ["ImplicitUser", "Loss", "Optimizer", "Parallelism", "engine", "lstm"]

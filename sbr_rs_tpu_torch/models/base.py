@@ -1,9 +1,19 @@
-"""Shared fluent hyperparameters and the implicit sequence-model base class,
-serving half. Counterpart of :mod:`sbr_rs_tpu.models.base`.
+"""Shared fluent hyperparameters and the implicit sequence-model base class.
+Counterpart of :mod:`sbr_rs_tpu.models.base`.
 
 What is here: the fluent ``Hyperparameters`` (their dicts load in either
-package), user representations, ``predict``, and ``recommend_batch`` with
-the exact top-k of the JAX package:
+package), ``fit``, user representations, ``predict``, and
+``recommend_batch`` with the exact top-k of the JAX package.
+
+Training (``fit``): windows are extracted and laid out on the host once
+(cached per interactions object), moved to the device with a zero-mask
+sentinel row, and each epoch walks a fresh permutation in minibatches of
+:func:`.engine.make_train_step`. The randomness (epoch permutations,
+negative candidates) comes from one ``torch.Generator`` on the model's
+device, seeded from the model's seed after the parameter draws and carried
+across ``fit`` calls; ``clone()`` copies its state.
+
+Serving (``recommend_batch``):
 
 * catalogs of at most ``_SERVE_ITEM_CHUNK`` items: one dense ``[U, N]``
   score matrix and one top-k (:func:`topk_small`);
@@ -18,33 +28,47 @@ the exact top-k of the JAX package:
   with a per-chunk seen mask (:func:`topk_streamed_bigseen`).
 
 The budgets keep the JAX package's values, so both packages take the same
-branch for the same shapes. Training (``fit``), ``approximate=True`` and
-the sharded paths are not ported yet. PyTorch runs eagerly, so there is no
-program cache.
+branch for the same shapes. The sparse table update, ``approximate=True``
+and the sharded paths are not ported yet. PyTorch runs eagerly, so there is
+no program cache.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..errors import InvalidPredictionValue
+from ..data import CompressedInteractions, extract_padded_windows, pack_streams, to_streams
+from ..errors import InvalidPredictionValue, NoInteractions, NonFiniteLoss
 from ..ops.topk_kernels import (
     groupmax_supported,
     score_groupmax,
     score_submax_groupmax,
 )
+from ..ops.sampling import WARP_CANDIDATES
 from ..utils.convert import params_from_numpy
+from ..utils.metrics import FitHistory, logger
 from . import ImplicitUser, Loss, Optimizer, Parallelism
-from .engine import init_embedding_params, table_dtype
+from .engine import (
+    EngineConfig,
+    init_embedding_params,
+    init_opt_state,
+    make_train_step,
+    table_biases,
+    table_dtype,
+    table_embeddings,
+)
 
 
 class Hyperparameters:
     """Fluent hyperparameters (reference ``src/models/lstm.rs:54-139``),
-    with the JAX package's fields and defaults. The mesh is not ported."""
+    with the JAX package's fields and defaults. The mesh is not ported;
+    ``num_threads`` and ``parallelism`` change nothing on one device, as in
+    the JAX package without a mesh."""
 
     def __init__(self, num_items: int, max_sequence_length: int):
         self._num_items = int(num_items)
@@ -376,11 +400,32 @@ def topk_streamed_bigseen(
     return vals, idx
 
 
+def _interactions_fingerprint(interactions: CompressedInteractions) -> tuple:
+    """A cheap content fingerprint of the arrays (the JAX package's): sums
+    and an order-sensitive weighted hash catch in-place edits of the arrays
+    behind an unchanged object."""
+    ids = interactions.item_ids
+    ptrs = interactions.user_pointers
+    if len(ids):
+        weights = np.arange(1, len(ids) + 1, dtype=np.uint64)
+        id_hash = int((ids.astype(np.uint64) * weights).sum() % (2**61 - 1))
+    else:
+        id_hash = 0
+    return (
+        len(interactions),
+        interactions.num_users,
+        interactions.num_items,
+        int(ids.sum()) if len(ids) else 0,
+        id_hash,
+        int(ptrs.sum()) if len(ptrs) else 0,
+    )
+
+
 class ImplicitSequenceModel:
-    """Base class of the sequence models: user representations, ``predict``
-    and ``recommend_batch``. Subclasses provide the tower (``_init_tower``,
-    ``_tower_fn``). All parameters live on ``device``, which the caller
-    names; nothing runs anywhere else."""
+    """Base class of the sequence models: ``fit``, user representations,
+    ``predict`` and ``recommend_batch``. Subclasses provide the tower
+    (``_init_tower``, ``_tower_fn``). All parameters live on ``device``,
+    which the caller names; nothing runs anywhere else."""
 
     # Catalog chunk of the streamed top-k (the JAX package's value).
     _SERVE_ITEM_CHUNK = 131072
@@ -418,6 +463,10 @@ class ImplicitSequenceModel:
         )
         params["tower"] = self._init_tower(gen, hyper._item_embedding_dim)
         self._params = params
+        # Training randomness continues from the parameter draws.
+        self._train_generator = gen
+        self._window_cache = None
+        self.history: Optional[FitHistory] = None
 
     # -- subclass hooks -------------------------------------------------------
 
@@ -425,20 +474,141 @@ class ImplicitSequenceModel:
         raise NotImplementedError
 
     def _tower_fn(self):
-        """``(tower_params, x [B, T, D]) -> hidden [B, T, D]``."""
+        """``(tower_params, x [B, T, D], starts=None) -> hidden [B, T, D]``,
+        differentiable; ``starts [B, T]`` marks packed-window starts."""
         raise NotImplementedError
+
+    # -- training -------------------------------------------------------------
+
+    def _engine_config(self) -> EngineConfig:
+        hp = self.hyper
+        sparse = hp._sparse_updates
+        if sparse is None:
+            # Auto: dense full-table updates while the table streams
+            # cheaply; beyond that, touched rows only.
+            sparse = hp._num_items * max(hp._item_embedding_dim, 1) > (1 << 22)
+        return EngineConfig(
+            num_items=hp._num_items,
+            loss=hp._loss,
+            optimizer=hp._optimizer,
+            learning_rate=hp._learning_rate,
+            l2_penalty=hp._l2_penalty,
+            sparse_updates=sparse,
+            lr_schedule=hp._lr_schedule,
+        )
+
+    def _epoch_permutation(self, epoch: int, n: int) -> torch.Tensor:
+        """The order of the ``n`` windows in epoch ``epoch`` (int64, on the
+        device), drawn from the training generator."""
+        return torch.randperm(n, generator=self._train_generator, device=self.device)
+
+    def _step_candidates(self, step: int, shape: Tuple[int, int, int]) -> torch.Tensor:
+        """Uniform negative candidates ``[B, T, K]`` (int64, on the device)
+        for step ``step`` of the fit, drawn from the training generator."""
+        return torch.randint(
+            0, self.hyper._num_items, shape, generator=self._train_generator, device=self.device
+        )
+
+    def _windows(self, interactions: CompressedInteractions):
+        """``(stream, mask, starts, n, num_examples)`` on the device, each
+        with a zero-mask sentinel row at index ``n``; cached per
+        interactions object (and content fingerprint), sequence length and
+        packing."""
+        hp = self.hyper
+        t_len = hp._max_sequence_length
+        key = (id(interactions), _interactions_fingerprint(interactions), t_len, hp._packed)
+        if self._window_cache is not None and self._window_cache[0] == key:
+            return self._window_cache[2]
+        padded = extract_padded_windows(interactions, t_len)
+        if len(padded) == 0:
+            raise NoInteractions()
+        windows = pack_streams(padded, t_len) if hp._packed else to_streams(padded)
+
+        def put(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+            a = np.concatenate([a, np.zeros((1, a.shape[1]), a.dtype)])
+            return torch.from_numpy(a).to(device=self.device, dtype=dtype)
+
+        stream = put(windows.stream, torch.int64)
+        mask = put(windows.mask, torch.float32)
+        starts = None if windows.starts is None else put(windows.starts, torch.float32)
+        out = (stream, mask, starts, len(windows), windows.num_examples)
+        # The cache holds the object, so the id in its key stays valid.
+        self._window_cache = (key, interactions, out)
+        return out
+
+    def fit(self, interactions: CompressedInteractions) -> float:
+        """Fit the model, returning the mean loss ``loss_sum / (1 +
+        examples)`` (reference ``src/models/sequence_model.rs:173-175``).
+
+        Windows longer than two items are cut from each user's history
+        (first chunk smallest), laid out one per row or packed, and walked
+        in ``ceil(n / batch_size)`` minibatches per epoch in a fresh random
+        order; the last batch is filled with the zero-mask sentinel row.
+        Repeated calls continue from the current parameters with a fresh
+        optimizer state, as the reference rebuilds its optimizer per fit
+        (``src/models/sequence_model.rs:90``). Raises
+        :class:`NoInteractions` when no window survives and
+        :class:`NonFiniteLoss` when the loss sum is not finite.
+        """
+        hp = self.hyper
+        stream, mask, starts, n, num_examples = self._windows(interactions)
+        t_len = hp._max_sequence_length
+        batch_size = min(hp._batch_size, n)
+        num_batches = -(-n // batch_size)  # ceil: no window is dropped
+        n_pad = num_batches * batch_size
+        epochs = hp._num_epochs
+        train_step = make_train_step(
+            self._engine_config(), self._tower_fn(), total_steps=num_batches * epochs
+        )
+        k_cand = WARP_CANDIDATES if hp._loss == Loss.WARP else 1
+        params = self._params
+        opt_state = init_opt_state(hp._optimizer, params)
+        losses = []
+        t0 = time.perf_counter()
+        for epoch in range(epochs):
+            perm = self._epoch_permutation(epoch, n)
+            if n_pad > n:  # padding rows read the sentinel window
+                perm = torch.cat([perm, perm.new_full((n_pad - n,), n)])
+            for i in range(num_batches):
+                rows = perm[i * batch_size : (i + 1) * batch_size]
+                batch = {"stream": stream[rows], "mask": mask[rows]}
+                if starts is not None:
+                    batch["starts"] = starts[rows]
+                candidates = self._step_candidates(
+                    epoch * num_batches + i, (batch_size, t_len, k_cand)
+                )
+                params, opt_state, loss = train_step(params, opt_state, batch, candidates)
+                losses.append(loss)
+        if losses:  # the one host sync of the fit
+            epoch_losses = torch.stack(losses).reshape(epochs, num_batches).sum(dim=1).cpu().numpy()
+        else:
+            epoch_losses = np.zeros((0,), np.float32)
+        wall_s = time.perf_counter() - t0
+
+        self._params = params
+        self.history = FitHistory(
+            epoch_losses=epoch_losses,
+            examples_per_epoch=num_examples,
+            num_epochs=epochs,
+            wall_s=wall_s,
+        )
+        logger.info(self.history.summary())
+        total_loss = float(epoch_losses.sum())
+        if not np.isfinite(total_loss):
+            raise NonFiniteLoss(f"Training diverged: epoch losses {epoch_losses.tolist()}")
+        return total_loss / (1.0 + num_examples * epochs)
 
     # -- parameters -----------------------------------------------------------
 
     @property
     def item_embeddings(self) -> np.ndarray:
         """Item embedding matrix ``[num_items, dim]`` (f32 copy)."""
-        return self._params["item_table"][:, :-1].to(torch.float32).cpu().numpy()
+        return table_embeddings(self._params).to(torch.float32).cpu().numpy()
 
     @property
     def item_biases(self) -> np.ndarray:
         """Item bias vector ``[num_items]`` (f32 copy)."""
-        return self._params["item_table"][:, -1].to(torch.float32).cpu().numpy()
+        return table_biases(self._params).to(torch.float32).cpu().numpy()
 
     def load_numpy_params(self, tree: dict) -> None:
         """Load parameters given as numpy arrays in the JAX package's tree
@@ -474,7 +644,7 @@ class ImplicitSequenceModel:
             raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
         u = len(lens)
         idx = torch.from_numpy(inputs).to(self.device).reshape(-1)
-        emb = self._params["item_table"][:, :-1].index_select(0, idx).to(torch.float32)
+        emb = table_embeddings(self._params).index_select(0, idx).to(torch.float32)
         hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1))
         last = torch.from_numpy(lengths - 1).to(self.device)
         return hidden[torch.arange(u, device=self.device), last]
@@ -555,12 +725,14 @@ class ImplicitSequenceModel:
         return scores
 
     def clone(self) -> "ImplicitSequenceModel":
-        """Independent copy on the same device: hyperparameters and
-        parameters (deep-copied)."""
+        """Independent copy on the same device: hyperparameters, parameters
+        (deep-copied) and the training generator's state, so the copy's
+        next ``fit`` draws what this model's next ``fit`` would."""
         hyper = type(self.hyper).from_dict(self.hyper.to_dict())
         m = hyper.build(self.device)
         m._params = {
             "item_table": self._params["item_table"].clone(),
             "tower": {name: v.clone() for name, v in self._params["tower"].items()},
         }
+        m._train_generator.set_state(self._train_generator.get_state())
         return m

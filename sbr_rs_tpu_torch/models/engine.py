@@ -1,14 +1,60 @@
-"""Parameter initialisation of the fused item table. Counterpart of
-``init_embedding_params`` in :mod:`sbr_rs_tpu.models.engine`; the training
-step is not ported yet."""
+"""The batched training engine: parameter initialisation of the fused item
+table, the optimizer state and one training step. Counterpart of
+:mod:`sbr_rs_tpu.models.engine`.
+
+One step over a ``[B, T]`` batch of windows (:class:`..data.StreamWindows`
+layout), as the JAX step does it:
+
+1. negative candidates, K=5 for WARP, K=1 otherwise, drawn uniformly by
+   the caller (``src/models/sequence_model.rs:47-68, 125-138``);
+2. ONE gather of the ``[B, T + 1]`` stream rows serves inputs and positives;
+   the loss is differentiated with respect to the gathered row COPIES (and
+   the tower), never the table, so the backward costs O(batch);
+3. the tower runs once; WARP scores the candidates against the detached
+   hidden state and keeps the first margin violator, else the last draw;
+   only the selected negative's rows join the differentiated set;
+4. scores dot a bias-augmented hidden state against whole fused rows; the
+   pairwise loss is masked and summed (``src/models/lstm.rs:322-328``);
+5. one scatter-add gathers the row gradients with touched and bias-touched
+   counts; the table takes :func:`..ops.optimizers.dense_row_update`, the
+   tower :func:`..ops.optimizers.dense_update`.
+
+Only the dense table update is ported; the sparse one waits for the sparse
+slice. PyTorch runs eagerly: there is no compiled program, and the step
+returns its loss as a device tensor so the host never waits on it.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import math
+from typing import Callable, Dict, Optional
 
 import torch
 
+from ..ops import optimizers as opt_ops
+from ..ops.losses import pairwise_loss
+from ..ops.sampling import WARP_CANDIDATES, warp_select_onehot
+from . import Loss, Optimizer
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """What the step closes over (the JAX package's fields and defaults).
+    ``lr_schedule``: ``"constant"`` (the reference's), ``"linear"`` (decay
+    to 0), ``"cosine"`` or ``"warmup_cosine"`` (linear warm-up over the
+    first 10 % of steps). ``sparse_updates=True`` is the sparse
+    touched-rows path, which is not ported yet."""
+
+    num_items: int
+    loss: Loss
+    optimizer: Optimizer
+    learning_rate: float
+    l2_penalty: float
+    lr_schedule: str = "constant"
+    sparse_updates: bool = True
 
 
 def table_dtype(name: str) -> torch.dtype:
@@ -38,3 +84,162 @@ def init_embedding_params(
     emb.mul_(init_scale / dim)
     table[:, dim].zero_()
     return {"item_table": table}
+
+
+def table_embeddings(params: Dict) -> torch.Tensor:
+    """Embedding-columns view of the fused table."""
+    return params["item_table"][:, :-1]
+
+
+def table_biases(params: Dict) -> torch.Tensor:
+    """Bias-column view of the fused table."""
+    return params["item_table"][:, -1]
+
+
+def init_opt_state(kind: Optimizer, params: Dict) -> Dict:
+    """Fresh optimizer state: a host step count and zero state per tensor."""
+    return {
+        "step": 0,
+        "item_table": opt_ops.init_state(kind, params["item_table"]),
+        "tower": {name: opt_ops.init_state(kind, p) for name, p in params["tower"].items()},
+    }
+
+
+def scheduled_lr(lr: float, schedule: str, step: int, total_steps: int) -> float:
+    """The learning rate of step ``step`` of ``total_steps`` (0: constant)."""
+    if not total_steps or schedule == "constant":
+        return lr
+    if schedule == "linear":
+        return lr * (1.0 - step / total_steps)
+    if schedule == "cosine":
+        return lr * 0.5 * (1.0 + math.cos(math.pi * step / total_steps))
+    if schedule == "warmup_cosine":
+        warm = max(1.0, 0.1 * total_steps)
+        if step < warm:
+            return lr * (step + 1.0) / warm
+        return lr * 0.5 * (1.0 + math.cos(math.pi * (step - warm) / max(1.0, total_steps - warm)))
+    raise ValueError(f"unknown lr schedule: {schedule!r}")
+
+
+def make_train_step(
+    config: EngineConfig,
+    tower_apply: Callable[..., torch.Tensor],
+    total_steps: int = 0,
+) -> Callable:
+    """Build the training step.
+
+    ``tower_apply(tower_params, x [B, T, D], starts=None) -> hidden [B, T, D]``
+    must be differentiable with respect to ``x`` and the tower parameters.
+
+    Returns ``train_step(params, opt_state, batch, candidates, lr=None,
+    l2=None) -> (params, opt_state, loss_sum)``. ``batch`` holds an int
+    ``stream [B, T + 1]`` (input at position t is ``stream[:, t]``, its
+    target ``stream[:, t + 1]``), a float ``mask [B, T]`` and, for packed
+    batches, ``starts [B, T]``, all on the parameters' device.
+    ``candidates [B, T, K]`` (int, K = 5 for WARP, else 1) are the uniform
+    negative draws; the caller makes them (the fit from its training
+    generator). ``loss_sum`` is the masked pre-update loss sum as a 0-d
+    device tensor.
+
+    The step updates the item table, the tower weights and their optimizer
+    state IN PLACE and returns the same tensors; ``opt_state["step"]``
+    advances by one.
+    """
+    if config.sparse_updates:
+        raise NotImplementedError(
+            "sparse_updates=True (the sort + segment-sum touched-rows update) "
+            "is not ported yet: it comes with the sparse large-catalog slice "
+            "(slice 5); use sparse_updates=False"
+        )
+    is_warp = config.loss == Loss.WARP
+    k_cand = WARP_CANDIDATES if is_warp else 1
+    num_items = config.num_items
+    kind = config.optimizer
+
+    def train_step(
+        params: Dict,
+        opt_state: Dict,
+        batch: Dict[str, torch.Tensor],
+        candidates: torch.Tensor,
+        lr: Optional[float] = None,
+        l2: Optional[float] = None,
+    ):
+        lr = config.learning_rate if lr is None else lr
+        l2 = config.l2_penalty if l2 is None else l2
+        stream = batch["stream"].long()
+        mask = batch["mask"]
+        starts = batch.get("starts")
+        b, t = stream.shape[0], stream.shape[1] - 1
+        table = params["item_table"]
+        c_param = table.shape[1]
+        dev = table.device
+        if candidates.shape != (b, t, k_cand):
+            raise ValueError(
+                f"candidates have shape {tuple(candidates.shape)}, expected {(b, t, k_cand)}"
+            )
+        candidates = candidates.long()
+
+        def gather(idx: torch.Tensor) -> torch.Tensor:
+            # f32 copies of the rows, whatever the storage dtype.
+            rows = table.index_select(0, idx.reshape(-1)).to(torch.float32)
+            return rows.reshape(idx.shape + (c_param,))
+
+        rows_s = gather(stream).requires_grad_()
+        tower = {name: p.detach().requires_grad_() for name, p in params["tower"].items()}
+        in_emb, pos_rows = rows_s[:, :t, :-1], rows_s[:, 1:, :]
+        hidden = tower_apply(tower, in_emb, starts=starts)
+        haug = torch.cat([hidden, hidden.new_ones((b, t, 1))], dim=-1)
+        pos_score = (haug * pos_rows).sum(-1)
+        if is_warp:
+            with torch.no_grad():
+                cand_score = torch.einsum("bte,btke->btk", haug.detach(), gather(candidates))
+                onehot = warp_select_onehot(pos_score.detach(), cand_score)
+                negatives = (candidates * onehot.long()).sum(-1)
+        else:
+            negatives = candidates[:, :, 0]
+        neg_rows = gather(negatives).requires_grad_()
+        neg_score = (haug * neg_rows).sum(-1)
+        loss_sum = (pairwise_loss(config.loss, pos_score, neg_score) * mask).sum()
+
+        leaves = [rows_s, neg_rows, *tower.values()]
+        grads = torch.autograd.grad(loss_sum, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, grads)]
+        d_rows = torch.cat([grads[0].reshape(-1, c_param), grads[1].reshape(-1, c_param)])
+        d_tower = dict(zip(tower, grads[2:]))
+
+        # Stream-slot occurrence flags: slot p is an input occurrence iff
+        # position p is supervised, a target occurrence iff position p-1 is.
+        mask_b = mask > 0
+        zero_col = torch.zeros((b, 1), dtype=torch.bool, device=dev)
+        in_occ = torch.cat([mask_b, zero_col], dim=1).reshape(-1)
+        tg_occ = torch.cat([zero_col, mask_b], dim=1).reshape(-1)
+        mask_flat = mask_b.reshape(-1)
+        occ_valid = torch.cat([in_occ | tg_occ, mask_flat])
+        # Input occurrences touch only the embedding columns: the bias of a
+        # row touched only as an input gets no L2, state or step.
+        bias_occ = torch.cat([tg_occ, mask_flat])
+        flat_idx = torch.cat([stream.reshape(-1), negatives.reshape(-1)])
+
+        # ONE scatter-add of the row gradients plus touched and bias-touched
+        # counts; invalid occurrences land on a dropped row past the table.
+        scatter_idx = torch.where(occ_valid, flat_idx, num_items)
+        payload = torch.cat(
+            [d_rows, d_rows.new_ones((d_rows.shape[0], 1)), bias_occ[:, None].to(d_rows.dtype)],
+            dim=1,
+        )
+        d_aug = payload.new_zeros((num_items + 1, payload.shape[1]))
+        d_aug.index_add_(0, scatter_idx, payload)
+        d_aug = d_aug[:num_items]
+
+        step = opt_state["step"]
+        lr_t = scheduled_lr(lr, config.lr_schedule, step, total_steps)
+        opt_ops.dense_row_update(
+            kind, lr_t, l2, table, opt_state["item_table"], d_aug[:, :-2],
+            d_aug[:, -2] > 0, step, bias_touched=d_aug[:, -1] > 0,
+        )
+        for name, p in params["tower"].items():
+            opt_ops.dense_update(kind, lr_t, l2, p, opt_state["tower"][name], d_tower[name], step)
+        opt_state["step"] = step + 1
+        return params, opt_state, loss_sum.detach()
+
+    return train_step

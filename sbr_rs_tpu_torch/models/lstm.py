@@ -58,9 +58,10 @@ class Hyperparameters(base.Hyperparameters):
 
 class ImplicitLSTMModel(base.ImplicitSequenceModel):
     """An LSTM-based sequence model for implicit feedback
-    (reference ``src/models/lstm.rs:385-416``). The tower is
-    :func:`lstm_apply_kernel` on every device: the recurrence is the CUDA
-    kernel for a model on ``cuda``, the plain PyTorch loop on ``cpu``."""
+    (reference ``src/models/lstm.rs:385-416``). The tower, for training and
+    serving, is :func:`lstm_apply_kernel` on every device: the recurrence
+    (forward, and backward in ``fit``) is the CUDA kernels for a model on
+    ``cuda``, the plain PyTorch loops on ``cpu``."""
 
     def _coupled(self) -> bool:
         return self.hyper._lstm_variant == LSTMVariant.COUPLED

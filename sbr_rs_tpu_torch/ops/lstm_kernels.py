@@ -1,13 +1,20 @@
-"""The LSTM recurrence, forward: a CUDA kernel and its plain PyTorch version.
+"""The LSTM recurrence, forward and backward: CUDA kernels, each beside its
+plain PyTorch version. Counterpart of :mod:`sbr_rs_tpu.ops.pallas_lstm`.
 
-Counterpart of the forward half of :mod:`sbr_rs_tpu.ops.pallas_lstm`. The
-kernel (``csrc/lstm_fwd.cu``) replaces the Pallas ``_fwd_kernel``; the input
-projection ``x @ w_x + b`` stays outside it as one ``torch.matmul`` over all
-timesteps, as the TPU version kept it outside.
+* :func:`lstm_fwd` (``csrc/lstm_fwd.cu``) replaces the Pallas ``_fwd_kernel``;
+* :func:`lstm_bwd` (``csrc/lstm_bwd.cu``) replaces ``_bwd_kernel``: the
+  reverse-time adjoint writing ``dxz``, then :func:`lstm_bwd_dwh`, the
+  ``dW_h`` reduction of the same source;
+* :class:`LSTMFunction` joins the two as one differentiable op, as
+  ``jax.custom_vjp`` does around ``lstm_apply_pallas``.
 
-:func:`lstm_fwd` launches the kernel for CUDA tensors and raises on input
-it does not take; for CPU tensors, and only for those, it runs
-:func:`lstm_fwd_plain`. There is no switch that turns the kernel off.
+The input projection ``x @ w_x + b`` stays outside the kernels as one
+``torch.matmul`` over all timesteps, and PyTorch's autograd of it gives
+``dw_x``, ``db`` and ``dx``, as the TPU version left them to XLA.
+
+Each wrapper launches its kernel for CUDA tensors and raises on input it
+does not take; for CPU tensors, and only for those, it runs the plain
+version. There is no switch that turns a kernel off.
 """
 
 from __future__ import annotations
@@ -101,6 +108,185 @@ def lstm_fwd(
 lstm_fwd.launches = 0
 
 
+def lstm_bwd_plain(
+    xz: torch.Tensor,
+    w_h: torch.Tensor,
+    hidden: torch.Tensor,
+    cell: torch.Tensor,
+    g: torch.Tensor,
+    keep: torch.Tensor,
+    coupled: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reverse time loop of the Pallas ``_bwd_kernel``: ``xz [T, B, G*D]``,
+    ``hidden``/``cell`` of the forward and the incoming gradient ``g``, all
+    ``[T, B, D]``, ``keep [T, B, 1]``. Gates are recomputed from ``xz[t]``
+    and ``h[t-1] * factor``, ``factor = keep[t] * (t > 0)``, which also
+    gates both adjoint carries. Returns ``(dxz, dW_h)``, f32."""
+    t_len, b, _ = xz.shape
+    d = w_h.shape[0]
+    dxz = torch.empty_like(xz)
+    dwh = torch.zeros_like(w_h)
+    dh = xz.new_zeros((b, d))
+    dc = xz.new_zeros((b, d))
+    for t in range(t_len - 1, -1, -1):
+        if t > 0:
+            factor = keep[t]
+            h_prev = hidden[t - 1] * factor
+            c_prev = cell[t - 1] * factor
+        else:
+            factor = torch.zeros_like(keep[0])
+            h_prev = c_prev = xz.new_zeros((b, d))
+        z = xz[t] + h_prev @ w_h
+        tc = torch.tanh(cell[t])
+        dh_tot = g[t] + dh
+        if coupled:
+            zi, zg, zo = z.split(d, dim=-1)
+            i, gg, o = torch.sigmoid(zi), torch.tanh(zg), torch.sigmoid(zo)
+            dc_tot = dc + dh_tot * o * (1.0 - tc * tc)
+            dz = torch.cat([
+                dc_tot * (gg - c_prev) * i * (1.0 - i),
+                dc_tot * i * (1.0 - gg * gg),
+                dh_tot * tc * o * (1.0 - o),
+            ], dim=-1)
+            dc_prev = dc_tot * (1.0 - i)
+        else:
+            zi, zf, zg, zo = z.split(d, dim=-1)
+            i, f = torch.sigmoid(zi), torch.sigmoid(zf)
+            gg, o = torch.tanh(zg), torch.sigmoid(zo)
+            dc_tot = dc + dh_tot * o * (1.0 - tc * tc)
+            dz = torch.cat([
+                dc_tot * gg * i * (1.0 - i),
+                dc_tot * c_prev * f * (1.0 - f),
+                dc_tot * i * (1.0 - gg * gg),
+                dh_tot * tc * o * (1.0 - o),
+            ], dim=-1)
+            dc_prev = dc_tot * f
+        dxz[t] = dz
+        dh = (dz @ w_h.T) * factor
+        dc = dc_prev * factor
+        dwh += h_prev.T @ dz
+    return dxz, dwh
+
+
+def lstm_bwd(
+    xz: torch.Tensor,
+    w_h: torch.Tensor,
+    hidden: torch.Tensor,
+    cell: torch.Tensor,
+    g: torch.Tensor,
+    keep: torch.Tensor,
+    coupled: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The adjoint of :func:`lstm_bwd_plain`, as the CUDA kernels for CUDA
+    tensors: the recurrence writes ``dxz``, then :func:`lstm_bwd_dwh`
+    reduces ``dW_h``. ``lstm_bwd.launches`` counts the recurrence's
+    launches."""
+    if xz.device.type == "cpu":
+        return lstm_bwd_plain(xz, w_h, hidden, cell, g, keep, coupled)
+    if xz.device.type != "cuda":
+        raise ValueError(f"lstm_bwd runs on cuda or cpu, not {xz.device}")
+    t_len, b, gd = xz.shape
+    d = w_h.shape[0]
+    gates = 3 if coupled else 4
+    if gd != gates * d:
+        raise ValueError(f"xz has {gd} gate columns, expected {gates} x {d}")
+    if d > 1024:
+        raise ValueError(f"lstm_bwd takes D <= 1024 (one thread per unit), got {d}")
+    _require(xz, "xz", (t_len, b, gd), torch.float32, xz.device)
+    _require(w_h, "w_h", (d, gd), torch.float32, xz.device)
+    for name, x in (("hidden", hidden), ("cell", cell), ("g", g)):
+        _require(x, name, (t_len, b, d), torch.float32, xz.device)
+    _require(keep, "keep", (t_len, b, 1), torch.float32, xz.device)
+    w_ht = w_h.T.contiguous()  # [G*D, D]: the dh loads coalesce
+    dxz = torch.empty_like(xz)
+    fn = _build.library().sbr_lstm_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(xz.device):
+        stream = torch.cuda.current_stream(xz.device).cuda_stream
+        status = fn(
+            xz.data_ptr(), w_h.data_ptr(), w_ht.data_ptr(), hidden.data_ptr(),
+            cell.data_ptr(), g.data_ptr(), keep.data_ptr(), dxz.data_ptr(),
+            t_len, b, d, int(coupled), stream,
+        )
+    _build.check(status, "lstm_bwd")
+    lstm_bwd.launches += 1
+    return dxz, lstm_bwd_dwh(hidden, keep, dxz)
+
+
+lstm_bwd.launches = 0
+
+
+def lstm_bwd_dwh_plain(hidden: torch.Tensor, keep: torch.Tensor, dxz: torch.Tensor) -> torch.Tensor:
+    """``dW_h = sum over t >= 1 of (h[t-1] * keep[t])^T dxz[t]``, ``[D, G*D]``."""
+    d, gd = hidden.shape[-1], dxz.shape[-1]
+    h_prev = (hidden[:-1] * keep[1:]).reshape(-1, d)
+    return h_prev.T @ dxz[1:].reshape(-1, gd)
+
+
+_DWH_TILE = 64  # the kernel's output tile
+_DWH_MIN_ROWS = 256  # fewest reduction rows worth a split of their own
+
+
+def lstm_bwd_dwh(hidden: torch.Tensor, keep: torch.Tensor, dxz: torch.Tensor) -> torch.Tensor:
+    """:func:`lstm_bwd_dwh_plain` as the CUDA reduction kernel for CUDA
+    tensors: per-chunk partials over the ``(T-1)*B`` rows, about four
+    blocks per SM in all, summed here. ``lstm_bwd_dwh.launches`` counts its
+    launches."""
+    if hidden.device.type == "cpu":
+        return lstm_bwd_dwh_plain(hidden, keep, dxz)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"lstm_bwd_dwh runs on cuda or cpu, not {hidden.device}")
+    t_len, b, d = hidden.shape
+    gd = dxz.shape[-1]
+    _require(hidden, "hidden", (t_len, b, d), torch.float32, hidden.device)
+    _require(keep, "keep", (t_len, b, 1), torch.float32, hidden.device)
+    _require(dxz, "dxz", (t_len, b, gd), torch.float32, hidden.device)
+    m = max(t_len - 1, 0) * b
+    tiles = -(-gd // _DWH_TILE) * -(-d // _DWH_TILE)
+    sms = torch.cuda.get_device_properties(hidden.device).multi_processor_count
+    splits = max(1, min(-(-4 * sms // tiles), -(-m // _DWH_MIN_ROWS)))
+    chunk = -(-max(m, 1) // splits)
+    chunk = -(-chunk // 16) * 16
+    splits = max(1, -(-m // chunk))
+    partial = torch.empty((splits, d, gd), dtype=torch.float32, device=hidden.device)
+    fn = _build.library().sbr_lstm_bwd_dwh_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(hidden.device):
+        stream = torch.cuda.current_stream(hidden.device).cuda_stream
+        status = fn(
+            hidden.data_ptr(), keep.data_ptr(), dxz.data_ptr(), partial.data_ptr(),
+            t_len, b, d, gd, splits, chunk, stream,
+        )
+    _build.check(status, "lstm_bwd_dwh")
+    lstm_bwd_dwh.launches += 1
+    return partial[0] if splits == 1 else partial.sum(dim=0)
+
+
+lstm_bwd_dwh.launches = 0
+
+
+class LSTMFunction(torch.autograd.Function):
+    """The recurrence as one differentiable op, ``(xz, w_h, keep, coupled)
+    -> hidden [T, B, D]``: :func:`lstm_fwd` forward, :func:`lstm_bwd`
+    backward (the kernels on CUDA). Gradients flow to ``xz`` and ``w_h``;
+    ``keep`` and ``coupled`` get none."""
+
+    @staticmethod
+    def forward(ctx, xz, w_h, keep, coupled):
+        hidden, cell = lstm_fwd(xz, w_h, keep, coupled)
+        ctx.save_for_backward(xz, w_h, hidden, cell, keep)
+        ctx.coupled = coupled
+        return hidden
+
+    @staticmethod
+    def backward(ctx, g):
+        xz, w_h, hidden, cell, keep = ctx.saved_tensors
+        dxz, dwh = lstm_bwd(xz, w_h, hidden, cell, g.contiguous(), keep, ctx.coupled)
+        return dxz, dwh, None, None
+
+
 def time_major_inputs(
     params: Params, x: torch.Tensor, starts: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +311,10 @@ def lstm_apply_kernel(
 ) -> torch.Tensor:
     """Counterpart of ``lstm_apply_pallas``: hidden states ``[B, T, D]`` for
     ``x [B, T, D]``, with the recurrence in :func:`lstm_fwd` (the kernel on
-    CUDA). ``starts [B, T]`` marks packed-window starts."""
+    CUDA). ``starts [B, T]`` marks packed-window starts. The recurrence
+    runs as :class:`LSTMFunction`, whose backward is :func:`lstm_bwd`;
+    where no gradient is wanted (serving, ``torch.no_grad``) autograd
+    builds no graph and nothing stays saved."""
     xz, keep = time_major_inputs(params, x, starts)
-    hidden, _ = lstm_fwd(xz, params["w_h"], keep, coupled)
+    hidden = LSTMFunction.apply(xz, params["w_h"], keep, coupled)
     return hidden.transpose(0, 1)

@@ -1,0 +1,87 @@
+"""Training observability: fit history and a leveled logger.
+
+Counterpart of :mod:`sbr_rs_tpu.utils.metrics` (a copy of its jax-free
+parts):
+
+* :class:`FitHistory` — per-epoch losses, example counts, and wall-clock
+  throughput for the last ``fit`` call (``model.history``).
+* :class:`Logger` — minimal leveled stderr logger, configurable via
+  ``SBR_LOG`` (``quiet`` | ``info`` | ``debug``).
+
+The profiler ``trace`` context is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class FitHistory:
+    """Metrics for one ``fit`` call.
+
+    ``epoch_losses[i]`` is the summed masked loss of epoch ``i`` (the
+    reference accumulates per-thread loss sums, ``src/models/
+    sequence_model.rs:157-175``); ``examples_per_epoch`` counts supervised
+    timesteps (reference "examples"); ``wall_s`` is whole-fit wall time,
+    ending when the epoch losses reach the host.
+    """
+
+    epoch_losses: np.ndarray
+    examples_per_epoch: int
+    num_epochs: int
+    wall_s: float
+
+    @property
+    def total_examples(self) -> int:
+        return self.examples_per_epoch * self.num_epochs
+
+    @property
+    def examples_per_sec(self) -> float:
+        return self.total_examples / self.wall_s if self.wall_s > 0 else float("nan")
+
+    @property
+    def mean_loss(self) -> float:
+        """``loss_sum / (1 + examples)`` — the reference's fit return value."""
+        return float(self.epoch_losses.sum()) / (1.0 + self.total_examples)
+
+    def summary(self) -> str:
+        losses = (
+            f"loss {float(self.epoch_losses[0]):.4g} -> {float(self.epoch_losses[-1]):.4g}"
+            if len(self.epoch_losses)
+            else "no epochs ran"
+        )
+        return (
+            f"fit: {self.num_epochs} epochs x {self.examples_per_epoch} examples "
+            f"in {self.wall_s:.2f}s ({self.examples_per_sec:,.0f} ex/s), {losses}"
+        )
+
+
+_LEVELS = {"quiet": 0, "info": 1, "debug": 2}
+
+
+class Logger:
+    """Leveled stderr logger; level from ``SBR_LOG`` (default ``quiet``)."""
+
+    def __init__(self, name: str = "sbr"):
+        self.name = name
+        self.level = _LEVELS.get(os.environ.get("SBR_LOG", "quiet").lower(), 0)
+
+    def _emit(self, tag: str, msg: str) -> None:
+        print(f"[{self.name}:{tag} {time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr)
+
+    def info(self, msg: str) -> None:
+        if self.level >= 1:
+            self._emit("info", msg)
+
+    def debug(self, msg: str) -> None:
+        if self.level >= 2:
+            self._emit("debug", msg)
+
+
+logger = Logger()

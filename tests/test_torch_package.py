@@ -1,6 +1,7 @@
 """Package-level properties of the port (``sbr_rs_tpu_torch``), on the CPU:
 it never imports jax, its kernel wrappers take the plain versions for CPU
-tensors only (launch counters stay 0), it never falls back from CUDA, and
+tensors only (launch counters stay 0, also through ``fit``), it never falls
+back from CUDA, the sparse table update is refused until it is ported, and
 its hyperparameters and parameters round-trip with the JAX package's."""
 
 import os
@@ -15,7 +16,8 @@ import pytest
 import torch
 
 from sbr_rs_tpu.models import lstm as jax_lstm
-from sbr_rs_tpu_torch.models import lstm
+from sbr_rs_tpu_torch import datasets
+from sbr_rs_tpu_torch.models import Loss, Optimizer, engine, lstm
 from sbr_rs_tpu_torch.ops import _build, lstm_kernels, topk_kernels
 from sbr_rs_tpu_torch.utils.convert import params_from_numpy, params_to_numpy
 
@@ -23,7 +25,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_import_leaves_jax_out():
-    code = "import sys, sbr_rs_tpu_torch; assert 'jax' not in sys.modules, sorted(sys.modules)"
+    code = (
+        "import sys, sbr_rs_tpu_torch, sbr_rs_tpu_torch.data, sbr_rs_tpu_torch.datasets, "
+        "sbr_rs_tpu_torch.models.engine; assert 'jax' not in sys.modules, sorted(sys.modules)"
+    )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
 
@@ -38,7 +43,13 @@ def test_sources_import_no_jax():
 
 @pytest.fixture
 def zero_counters():
-    wrappers = (lstm_kernels.lstm_fwd, topk_kernels.score_groupmax, topk_kernels.score_submax_groupmax)
+    wrappers = (
+        lstm_kernels.lstm_fwd,
+        lstm_kernels.lstm_bwd,
+        lstm_kernels.lstm_bwd_dwh,
+        topk_kernels.score_groupmax,
+        topk_kernels.score_submax_groupmax,
+    )
     for fn in wrappers:
         fn.launches = 0
     yield wrappers
@@ -61,8 +72,17 @@ def test_cpu_tensors_take_the_plain_versions(zero_counters):
     assert torch.isneginf(got[3000 // 32 + 1 :]).all()
     smax, gmax = topk_kernels.score_submax_groupmax(rows, reps, 0, 2500, 32, 128)
     assert smax.shape == (2048 * 2 // 32, 5) and gmax.shape == (2048 * 2 // 128, 5)
+    hidden, cell = lstm_kernels.lstm_fwd(xz, w_h, keep, False)
+    g = torch.from_numpy(rng.normal(size=(5, 3, 8)).astype(np.float32))
+    for got, want in zip(lstm_kernels.lstm_bwd(xz, w_h, hidden, cell, g, keep, False),
+                         lstm_kernels.lstm_bwd_plain(xz, w_h, hidden, cell, g, keep, False)):
+        assert torch.equal(got, want)
+    dxz = lstm_kernels.lstm_bwd_plain(xz, w_h, hidden, cell, g, keep, False)[0]
+    assert torch.equal(lstm_kernels.lstm_bwd_dwh(hidden, keep, dxz),
+                       lstm_kernels.lstm_bwd_dwh_plain(hidden, keep, dxz))
     model = lstm.Hyperparameters(300, 4).embedding_dim(8).from_seed(0).build("cpu")
     assert len(model.recommend_batch([[1, 2], []], k=3)) == 2
+    model.fit(datasets.synthetic_interactions(20, 300, 8, rng=0).to_compressed())
     assert all(fn.launches == 0 for fn in zero_counters)
 
 
@@ -78,10 +98,28 @@ def test_no_fallback_from_cuda(monkeypatch):
     with pytest.raises(ValueError):
         lstm_kernels.lstm_fwd(torch.empty((2, 3, 32), device="meta"), torch.empty((8, 32)),
                               torch.empty((2, 3, 1)), False)
+    seq = torch.empty((2, 3, 8), device="meta")
+    with pytest.raises(ValueError):
+        lstm_kernels.lstm_bwd(torch.empty((2, 3, 32), device="meta"), torch.empty((8, 32)),
+                              seq, seq, seq, torch.empty((2, 3, 1)), False)
+    with pytest.raises(ValueError):
+        lstm_kernels.lstm_bwd_dwh(seq, torch.empty((2, 3, 1)), torch.empty((2, 3, 32)))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(os, "access", lambda *a, **k: False)
     with pytest.raises(_build.KernelCompileError):
         _build.find_nvcc()
+
+
+def test_sparse_updates_are_refused():
+    cfg = engine.EngineConfig(
+        num_items=10, loss=Loss.BPR, optimizer=Optimizer.ADAM, learning_rate=0.1, l2_penalty=0.0
+    )
+    assert cfg.sparse_updates is True  # the JAX package's default
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        engine.make_train_step(cfg, lambda p, x, starts=None: x)
+    big = lstm.Hyperparameters(300_000, 4).embedding_dim(16).build("cpu")
+    assert big._engine_config().sparse_updates  # N * D > 2**22: the sparse path
+    assert not lstm.Hyperparameters(3706, 4).embedding_dim(128).build("cpu")._engine_config().sparse_updates
 
 
 def test_hyperparameters_round_trip_with_jax():
