@@ -6,14 +6,16 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``sbr_rs_tpu_torch/csrc`` and drives the
-LSTM serving and training paths, one phase per printed line:
+LSTM serving, evaluation and training paths, one phase per printed line:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. the kernel build and its time;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving and training paths, with the largest error beside the
    stated tolerance and the median time of each: the LSTM forward (K1), the
-   LSTM backward (K2) and its dW_h reduction, the score + group-max kernels;
+   LSTM backward (K2) and its dW_h reduction, the score + group-max kernels
+   (K3/K4), the score + rank count kernel (K5: counts may differ only by
+   rows whose score lies within the tolerance of the target);
 4. ``recommend_batch(k=10)`` for 4096 users over a 10,000,000-item LSTM-127
    catalog (single-pass merge, launches the LSTM and score+submax+groupmax
    kernels), in users/s, checked against a plain full-catalog reference;
@@ -21,6 +23,14 @@ LSTM serving and training paths, one phase per printed line:
    launches the score+groupmax kernel chunk by chunk, checked the same way;
 6. one more 10M batch under ``torch.profiler`` (after the timed runs): the
    device's busy time, its idle share and the kernels that took the time;
+6b. ``evaluation.mrr_score`` on the same 10M-item model for 512 and 4096
+   held-out users (the fused counter: one K5 launch per user batch), in
+   µs per user, one profiled 4096-user call, K5 at that shape against its
+   plain version (chunked), and 64 users' ranks against the per-user
+   ``predict`` loop;
+6c. the fused counter (K5) against the chunked counter and the per-user
+   loop on a 200,000-item model (four chunks, a clamped tail), with
+   repeated seen items and held-out items already seen;
 7. one training step over the kernel tower (K1 + K2) against the same step
    over the plain PyTorch tower (autograd through the time loop), same
    parameters, batch and candidates, for both fit configurations below;
@@ -34,9 +44,13 @@ LSTM serving and training paths, one phase per printed line:
    Adagrad, packed, batch 256, 10 epochs, in examples/s (a fresh fit, then
    the range over five continued fits), with a falling loss; one more fit
    under ``torch.profiler``; then ``recommend_batch(k=10)`` for 64 training
-   histories.
+   histories, and MRR, hit rate@10 and NDCG@10 on the held-out users (a
+   single chunk: the chunked counter), above the untrained model's MRR.
 
-It then prints the kernels' JSON line and, last, the contract line
+It then prints the kernels' JSON line (each kernel's launches on the main
+paths, largest error, card and plain times, its bound on this card and the
+time of one PyTorch call that computes the same function, where there is
+one) and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 those lines. Without a CUDA device it exits non-zero at once.
 """
@@ -82,6 +96,18 @@ G_FLOOR = 1e-5
 K2_SHAPES = [(128, 256, 128, (True, False)), (32, 256, 32, (False, True)), (32, 4096, 127, (False,))]
 K2_TIMED = (128, 256, 128, True, True)  # the ml1m fit's call: Coupled, packed
 BENCH_REPEATS = 5  # continued bench.py-config fits timed, for their spread
+# Evaluation: the test sets of benches/large_scale.py at 10M items, the
+# users checked against the per-user loop, and the fused-vs-chunked model.
+EVAL_USERS = (512, 4096)
+EVAL_REF_USERS = 64
+N_ITEMS_FUSED = 200_000
+USERS_FUSED = 300
+K5_ROWS = 1_000_000
+# Published peaks of one H100 SXM (dense): FP32 outside the tensor cores,
+# and HBM3. A kernel's bound is the larger of its FLOPs and its bytes (each
+# input read once, each output written once) over these.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -96,7 +122,7 @@ def main() -> None:
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sbr_rs_tpu_torch import data as sbr_data
-    from sbr_rs_tpu_torch import datasets
+    from sbr_rs_tpu_torch import datasets, evaluation
     from sbr_rs_tpu_torch.models import Loss, Optimizer, engine, lstm
     from sbr_rs_tpu_torch.models.towers import lstm_apply
     from sbr_rs_tpu_torch.ops import _build
@@ -157,13 +183,31 @@ def main() -> None:
         return err
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    report = {}  # kernel name -> {"max_abs_err", "ms", "plain_ms"}
+    # kernel name -> {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    report = {}
 
-    def record(name, err, ms=None, plain_ms=None):
-        r = report.setdefault(name, {"max_abs_err": 0.0, "ms": None, "plain_ms": None})
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def record(name, err, ms=None, plain_ms=None, work=None, library_ms=None):
+        """Keep the largest error; with ``ms``, the timed call's numbers and
+        its bound from ``work = (flops, bytes)`` at the same shape."""
+        r = report.setdefault(name, {
+            "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None,
+        })
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if ms is not None:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+            flops, moved = work
+            t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, moved / PEAK_HBM_BYTES * 1e3
+            r.update(
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            )
+            print(
+                f"  bound: {r['bound_ms']:.3f} ms ({r['bound_by']}: {flops:.3e} FLOP, {moved:.3e} B); "
+                f"kernel at {r['bound_ms'] / ms:.1%} of it", flush=True,
+            )
 
     # -- phase 3: kernels against their plain versions ----------------------------
     print(f"phase 3 K1 lstm_fwd: U={USERS} T={SEQ_LEN} D={DIM}", flush=True)
@@ -184,7 +228,10 @@ def main() -> None:
                 ms = time_ms(lambda: lk.lstm_fwd(xz, w_h, keep, coupled))
                 plain_ms = time_ms(lambda: lk.lstm_fwd_plain(xz, w_h, keep, coupled))
                 print(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-                record("lstm_fwd", err, ms, plain_ms)
+                t_len, b_rows, gdim = xz.shape
+                record("lstm_fwd", err, ms, plain_ms, work=(
+                    2.0 * t_len * b_rows * DIM * gdim, nbytes(xz, w_h, keep, h, c),
+                ))
             else:
                 record("lstm_fwd", err)
     del xz, w_h, starts, keep, h, c, hp, cp
@@ -236,10 +283,22 @@ def main() -> None:
                     f"{red_ms:.3f} ms (plain matmul {red_plain_ms:.3f}); K1 at this shape {fwd_ms:.3f} ms",
                     flush=True,
                 )
-                timed = (t_len, b, d, coupled, with_starts) == K2_TIMED
-                record("lstm_bwd", err, *((ms, plain_ms) if timed else ()))
-                record("lstm_bwd_dwh", err_w, *((red_ms, red_plain_ms) if timed else ()))
-    del xz, w_h, g, starts, keep, h, c, hp, cp, dxz, dwh, pdxz, pdwh
+                if (t_len, b, d, coupled, with_starts) != K2_TIMED:
+                    record("lstm_bwd", err)
+                    record("lstm_bwd_dwh", err_w)
+                    continue
+                # dz @ w_h^T at every step, and the dW_h product.
+                prod = 2.0 * (t_len - 1) * b * d * gates * d
+                record("lstm_bwd", err, ms, plain_ms, work=(
+                    2.0 * t_len * b * gates * d * d + prod, nbytes(xz, w_h, h, c, g, keep, dxz, dwh),
+                ))
+                h_prev = (h[:-1] * keep[1:]).reshape(-1, d)
+                dz = dxz[1:].reshape(-1, gates * d)
+                mm_ms = time_ms(lambda: torch.mm(h_prev.T, dz))
+                print(f"  library: torch.mm of the dW_h product alone {mm_ms:.3f} ms", flush=True)
+                record("lstm_bwd_dwh", err_w, red_ms, red_plain_ms, work=(prod, nbytes(h, keep, dxz, dwh)),
+                       library_ms=mm_ms)
+    del xz, w_h, g, starts, keep, h, c, hp, cp, dxz, dwh, pdxz, pdwh, h_prev, dz
     torch.cuda.empty_cache()
 
     def check_k3(label, rows, reps, lo, n, group, timed):
@@ -279,11 +338,14 @@ def main() -> None:
         record("score_groupmax", err)
         record("score_submax_groupmax", check_k4(f"{name} 32/128", rows, reps, lo_mid, N_ITEMS, 32, 128, True))
     # The running merge's call: one chunk x 512 users (timed for the report).
+    reps_m = reps[:USERS_MERGE].contiguous()
     err, ms, plain_ms = check_k3(
-        f"float32 group 128, U={USERS_MERGE}", rows32, reps[:USERS_MERGE].contiguous(),
-        lo_mid, N_ITEMS_MERGE, 128, True,
+        f"float32 group 128, U={USERS_MERGE}", rows32, reps_m, lo_mid, N_ITEMS_MERGE, 128, True,
     )
-    record("score_groupmax", err, ms, plain_ms)
+    out_rows = tk.groupmax_rows(SERVE_CHUNK, 128)
+    record("score_groupmax", err, ms, plain_ms, work=(
+        2.0 * SERVE_CHUNK * USERS_MERGE * (DIM + 1), nbytes(rows32, reps_m) + out_rows * USERS_MERGE * 4,
+    ))
     # Ragged slabs: mid-catalog (lo + c < n) and past the catalog end.
     ragged = rows32[4096 : 4096 + 100_000]
     for lo, n in ((4096, N_ITEMS_MERGE), (4096, 50_000)):
@@ -291,7 +353,58 @@ def main() -> None:
         err, _, _ = check_k3(label, ragged, reps, lo, n, 128, False)
         record("score_groupmax", err)
         record("score_submax_groupmax", check_k4(label, ragged, reps, lo, n, 32, 128, False))
-    del rows32, rows, reps, ragged
+    del rows32, rows, reps, reps_m, ragged
+    torch.cuda.empty_cache()
+
+    def check_k5(label, rows, reps, lo, col_lo, n, timed):
+        """K5 against its plain version: targets are real row scores plus
+        noise of 1e-4, so that many rows sit near them. The probe scores
+        agree within TOL_SCORE; each user's count may differ from the plain
+        one by at most its rows whose plain score lies within TOL_SCORE of
+        its target."""
+        c, u = rows.shape[0], reps.shape[0]
+        st = rows.float() @ reps.T  # the plain formulation's scores
+        users = torch.arange(u, device=dev)
+        pick = torch.randint(0, c, (u,), device=dev, generator=gen)
+        targets = (st[pick, users] + 1e-4 * torch.randn((u,), device=dev, generator=gen)).contiguous()
+        probe = torch.randint(-2, c + 2, (u,), device=dev, generator=gen)
+        counts, probe_sc = tk.score_count_ge(rows, reps, targets, probe, lo, col_lo, n)
+        p_counts, p_probe = tk.score_count_ge_plain(rows, reps, targets, probe, lo, col_lo, n)
+        local = torch.arange(c, device=dev)
+        valid = ((lo + local) < n) & (local >= col_lo)
+        near = (((st - targets).abs() <= TOL_SCORE) & valid[:, None]).sum(dim=0)
+        del st
+        diff = (counts.long() - p_counts.long()).abs()
+        err = float((probe_sc - p_probe).abs().max())
+        print(
+            f"  K5 {label}: probe max_abs_err {err:.3e} (tol {TOL_SCORE:.0e}); counts differ for "
+            f"{int((diff > 0).sum())} of {u} users, by at most {int(diff.max())} (near-tie rows "
+            f"per user up to {int(near.max())}); counts {int(p_counts.min())}..{int(p_counts.max())}",
+            flush=True,
+        )
+        if not err <= TOL_SCORE:
+            raise SmokeFailure(f"K5 {label}: probe error {err:.3e} above {TOL_SCORE:.0e}")
+        if bool((diff > near).any()):
+            raise SmokeFailure(f"K5 {label}: counts differ beyond the near-tie rows")
+        if timed:
+            ms = time_ms(lambda: tk.score_count_ge(rows, reps, targets, probe, lo, col_lo, n))
+            plain_ms = time_ms(lambda: tk.score_count_ge_plain(rows, reps, targets, probe, lo, col_lo, n))
+            print(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        return err
+
+    print(f"phase 3 K5 score_count_ge: {K5_ROWS} x U={USERS_MERGE}, Cc={DIM + 1}", flush=True)
+    rows32 = torch.randn((K5_ROWS, DIM + 1), device=dev, generator=gen)
+    reps = (torch.randn((USERS_MERGE, DIM + 1), device=dev, generator=gen) * (DIM + 1) ** -0.5).contiguous()
+    record("score_count_ge", check_k5("float32 whole catalog", rows32, reps, 0, 0, K5_ROWS, True))
+    record("score_count_ge", check_k5(
+        "bfloat16 whole catalog", rows32.to(torch.bfloat16), reps, 0, 0, K5_ROWS, False
+    ))
+    # A mid-catalog slab: lo > 0, col_lo > 0, ragged c, n cutting through it.
+    slab = rows32[123_456 : 123_456 + 300_001]
+    record("score_count_ge", check_k5(
+        "slab c=300001 lo=2000000 col_lo=1000 n=2250000", slab, reps, 2_000_000, 1000, 2_250_000, False
+    ))
+    del rows32, reps, slab
     torch.cuda.empty_cache()
 
     # -- phase 4: the serving path at 10M items ------------------------------------
@@ -342,7 +455,9 @@ def main() -> None:
         f"  K4 whole catalog {N_ITEMS} x U={USERS}, sub 32 / group 128: max_abs_err {err:.3e} "
         f"(tol {TOL_SCORE:.0e}); kernel {ms:.1f} ms, plain (chunked) {plain_ms:.1f} ms", flush=True,
     )
-    record("score_submax_groupmax", err, ms, plain_ms)
+    record("score_submax_groupmax", err, ms, plain_ms, work=(
+        2.0 * N_ITEMS * USERS * (DIM + 1), nbytes(table, reps_aug, smax, gmax),
+    ))
     del reps, reps_aug, smax, gmax
     torch.cuda.empty_cache()
 
@@ -353,8 +468,10 @@ def main() -> None:
         "lstm_bwd_dwh": lk.lstm_bwd_dwh,
         "score_groupmax": tk.score_groupmax,
         "score_submax_groupmax": tk.score_submax_groupmax,
+        "score_count_ge": tk.score_count_ge,
     }
     serving_kernels = ("lstm_fwd", "score_groupmax", "score_submax_groupmax")
+    eval_kernels = ("lstm_fwd", "score_count_ge")
     training_kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_dwh")
     launches = dict.fromkeys(counters, 0)  # summed over the main-path runs
 
@@ -436,7 +553,135 @@ def main() -> None:
         f"phase 6 profile, one batch at {N_ITEMS} items",
         lambda: model.recommend_batch(histories, k=K), top=8,
     )
-    del model, model_merge, table
+    del model_merge
+    torch.cuda.empty_cache()
+
+    # -- phase 6b: the evaluation path at 10M items ----------------------------------
+    tests = {
+        u: datasets.synthetic_interactions(u, N_ITEMS, 20, rng=seed).to_compressed()
+        for u, seed in zip(EVAL_USERS, (1, 2))
+    }
+    zero_counters()
+    mrr_calls = 0
+    for u, test in tests.items():
+        evaluation.mrr_score(model, test)  # warm-up
+        times, mrrs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            mrrs.append(evaluation.mrr_score(model, test))
+            times.append(time.perf_counter() - t0)
+        mrr_calls += 4
+        t_med = statistics.median(times)
+        print(
+            f"phase 6b eval {N_ITEMS} items, U={u}: {t_med * 1e6 / u:.1f} us per user (median of 3: "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms), MRR {mrrs[0]:.6f}", flush=True,
+        )
+        if not all(np.isfinite(m) and 0 < m <= 1 for m in mrrs):
+            raise SmokeFailure(f"phase 6b: MRR {mrrs} outside (0, 1]")
+    read_counters("evaluation path", eval_kernels)
+    if tk.score_count_ge.launches != mrr_calls:  # one user batch per call
+        raise SmokeFailure(f"phase 6b: {tk.score_count_ge.launches} K5 launches for {mrr_calls} calls")
+    profiled(
+        f"phase 6b profile, one eval at {N_ITEMS} items, U={EVAL_USERS[-1]}",
+        lambda: evaluation.mrr_score(model, tests[EVAL_USERS[-1]]), top=10,
+    )
+
+    # K5 at the shapes the evaluation path gives it (the whole catalog, each
+    # test set's users), against its plain version chunk by chunk (a [10M,
+    # 4096] score matrix would be 164 GB), with the near-tie rule of phase 3.
+    # The report keeps the 4096-user call.
+    for test in tests.values():
+        users = np.flatnonzero(np.diff(test.user_pointers) >= 2)
+        reps, _, test_items, test_in_prefix = evaluation._batch_inputs(model, test, users, N_ITEMS)
+        targets = evaluation._targets(table, reps, test_items, test_in_prefix)
+        reps_aug = torch.cat([reps, reps.new_ones((len(users), 1))], dim=1).contiguous()
+        counts, _ = tk.score_count_ge(table, reps_aug, targets, test_items, 0, 0, N_ITEMS)
+
+        def plain_whole():
+            return [
+                tk.score_count_ge_plain(table[lo : lo + SERVE_CHUNK], reps_aug, targets, test_items - lo,
+                                        lo, 0, N_ITEMS)[0]
+                for lo in range(0, N_ITEMS, SERVE_CHUNK)
+            ]
+
+        p_counts = torch.stack(plain_whole()).sum(dim=0)
+        near = sum(
+            ((table[lo : lo + SERVE_CHUNK] @ reps_aug.T - targets).abs() <= TOL_SCORE).sum(dim=0)
+            for lo in range(0, N_ITEMS, SERVE_CHUNK)
+        )
+        diff = (counts.long() - p_counts.long()).abs()
+        if bool((diff > near).any()):
+            raise SmokeFailure("phase 6b: K5 counts differ from the plain version beyond the near-tie rows")
+        ms = time_ms(lambda: tk.score_count_ge(table, reps_aug, targets, test_items, 0, 0, N_ITEMS), reps=3)
+        plain_ms = time_ms(plain_whole, reps=3)
+        print(
+            f"  K5 whole catalog {N_ITEMS} x U={len(users)}: counts differ for {int((diff > 0).sum())} "
+            f"users, by at most {int(diff.max())} (near-tie rows per user up to {int(near.max())}); "
+            f"kernel {ms:.1f} ms, plain (chunked) {plain_ms:.1f} ms", flush=True,
+        )
+        record("score_count_ge", 0.0, ms, plain_ms, work=(
+            2.0 * N_ITEMS * len(users) * (DIM + 1),
+            nbytes(table, reps_aug, targets, test_items) + len(users) * 8,  # counts and probe out
+        ))
+        del reps, reps_aug, targets, test_items, test_in_prefix, counts, p_counts, near, diff
+
+    # 64 users' ranks against the per-user predict loop.
+    test = tests[EVAL_USERS[0]]
+    ptr = test.user_pointers
+    sub = sbr_data.CompressedInteractions(
+        EVAL_REF_USERS, N_ITEMS, ptr[: EVAL_REF_USERS + 1], test.item_ids[: ptr[EVAL_REF_USERS]],
+        test.timestamps[: ptr[EVAL_REF_USERS]],
+    )
+    t0 = time.perf_counter()
+    generic = evaluation._ranks_generic(model, sub)
+    t_gen = time.perf_counter() - t0
+    check_ranks("phase 6b", model, sub, {"batched (K5)": evaluation._ranks_batched(model, sub)}, generic, torch)
+    print(f"  per-user loop: {t_gen:.1f} s for {EVAL_REF_USERS} users", flush=True)
+    del model, table, tests, test, sub
+    torch.cuda.empty_cache()
+
+    # -- phase 6c: fused counter against chunked counter, 200,000 items ---------------
+    model = (
+        lstm.Hyperparameters(N_ITEMS_FUSED, SEQ_LEN)
+        .embedding_dim(DIM)
+        .lstm_variant(lstm.LSTMVariant.NORMAL)
+        .from_seed(3)
+        .build(dev)
+    )
+    rng_f = np.random.default_rng(9)
+    hist_f = []
+    for u in range(USERS_FUSED):
+        h = rng_f.integers(0, N_ITEMS_FUSED, int(rng_f.integers(3, 40))).tolist()
+        if u % 5 == 0:
+            h[-1] = h[0]  # held-out item already seen
+        if u % 3 == 0:
+            h[1] = h[0]  # a repeated seen item
+        hist_f.append(h)
+    test = sbr_data.Interactions.from_arrays(
+        np.repeat(np.arange(USERS_FUSED), [len(h) for h in hist_f]), np.concatenate(hist_f),
+        np.concatenate([np.arange(len(h)) for h in hist_f]), USERS_FUSED, N_ITEMS_FUSED,
+    ).to_compressed()
+    users = np.arange(USERS_FUSED)
+    inputs = evaluation._batch_inputs(model, test, users, N_ITEMS_FUSED)
+    table = model._params["item_table"]
+    ranks = {}
+    for name, (counts, self_hits, _) in (
+        ("fused (K5)", evaluation._count_catalog_fused(table, *inputs, N_ITEMS_FUSED)),
+        ("chunked", evaluation._count_catalog_chunked(table, *inputs, N_ITEMS_FUSED, evaluation._ITEM_CHUNK)),
+    ):
+        ranks[name] = (1 + counts - self_hits).cpu().numpy()
+    ranks["_ranks_batched"] = evaluation._ranks_batched(model, test)
+    seen_again = np.array([h[-1] in h[:-1] for h in hist_f])
+    for name, r in ranks.items():
+        if not (r[seen_again] == N_ITEMS_FUSED).all():
+            raise SmokeFailure(f"phase 6c: {name} does not rank already-seen held-out items last")
+    print(
+        f"phase 6c fused vs chunked: {N_ITEMS_FUSED} items "
+        f"({-(-N_ITEMS_FUSED // evaluation._ITEM_CHUNK)} chunks), {USERS_FUSED} users, "
+        f"{int(seen_again.sum())} held-out items already seen", flush=True,
+    )
+    check_ranks("phase 6c", model, test, ranks, evaluation._ranks_generic(model, test), torch)
+    del model, table, inputs, test
     torch.cuda.empty_cache()
 
     # -- the training path -------------------------------------------------------------
@@ -474,7 +719,7 @@ def main() -> None:
     t0 = time.perf_counter()
     ml1m_data = datasets.synthetic_interactions(6040, 3706, 165, rng=0).to_compressed()
     bench_raw = datasets.synthetic_interactions(943, 1682, 106, rng=0)
-    bench_train, _ = sbr_data.user_based_split(bench_raw, np.random.default_rng(42), 0.2)
+    bench_train, bench_test = sbr_data.user_based_split(bench_raw, np.random.default_rng(42), 0.2)
     bench_data = bench_train.to_compressed()
     print(
         f"training data: ml1m-shaped {len(ml1m_data)} interactions, bench-shaped "
@@ -608,6 +853,26 @@ def main() -> None:
     ptr, items = bench_data.user_pointers, bench_data.item_ids
     hist_t = [items[ptr[u] : ptr[u + 1]].tolist() for u in range(len(ptr) - 1) if ptr[u + 1] > ptr[u]][:64]
     check_lists("phase 9 recommend_batch", model.recommend_batch(hist_t, k=K), hist_t, 1682)
+    held_out = bench_test.to_compressed()
+    zero_counters()
+    t0 = time.perf_counter()
+    metrics = {
+        "MRR": evaluation.mrr_score(model, held_out),
+        f"hit rate@{K}": evaluation.hit_rate_score(model, held_out, k=K),
+        f"NDCG@{K}": evaluation.ndcg_score(model, held_out, k=K),
+    }
+    t_eval = time.perf_counter() - t0
+    read_counters("bench evaluation", ("lstm_fwd",))
+    untrained = evaluation.mrr_score(bench_model(), held_out)
+    print(
+        f"phase 9 eval on the {int((np.diff(held_out.user_pointers) >= 2).sum())} held-out users "
+        f"(single chunk, chunked counter): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
+        + f" in {t_eval * 1e3:.1f} ms for the three; untrained model MRR {untrained:.6f}",
+        flush=True,
+    )
+    if not all(np.isfinite(v) for v in metrics.values()) or not metrics["MRR"] > untrained:
+        raise SmokeFailure(f"phase 9: metrics {metrics}, untrained MRR {untrained}")
 
     kernels = []
     sources = {
@@ -616,13 +881,13 @@ def main() -> None:
         "lstm_bwd_dwh": ("sbr_rs_tpu_torch/csrc/lstm_bwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:82"),
         "score_groupmax": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:108"),
         "score_submax_groupmax": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:130"),
+        "score_count_ge": ("sbr_rs_tpu_torch/csrc/score_count.cu", "sbr_rs_tpu/ops/pallas_topk.py:365"),
     }
     for name, (source, replaces) in sources.items():
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": launches[name], **r,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -641,6 +906,39 @@ def check_lists(phase, ids, histories, n):
         if set(row) & set(h):
             raise SmokeFailure(f"{phase}: user {u} was recommended an item it has seen")
     print(f"  {phase}: {len(ids)} lists of {K} distinct unseen ids in [0, {n})", flush=True)
+
+
+def check_ranks(phase, model, test, ranks, generic, torch):
+    """Each of ``ranks`` (name -> ranks of the qualifying users) against the
+    per-user loop's ``generic``: equal, except that a user's ranks may
+    differ by as many items as score within TOL_SCORE of its held-out item
+    (plain f32 scores of the whole catalog, seen items masked)."""
+    from sbr_rs_tpu_torch import evaluation
+
+    n = test.num_items
+    users = np.flatnonzero(np.diff(test.user_pointers) >= 2)
+    reps, prefix, test_items, _ = evaluation._batch_inputs(model, test, users, n)
+    table = model._params["item_table"][:n].float()
+    near = []
+    for i in range(0, len(users), 64):  # [64, n] scores at a time
+        scores = reps[i : i + 64] @ table[:, :-1].T + table[:, -1]
+        rows = torch.arange(scores.shape[0], device=scores.device)
+        p = prefix[i : i + 64]
+        mask = torch.zeros((scores.shape[0], n + 1), dtype=torch.bool, device=scores.device)
+        scores.masked_fill_(mask.scatter_(1, p, True)[:, :n], evaluation._NEG_MIN)
+        target = scores[rows, test_items[i : i + 64]]
+        near.append((((scores - target[:, None]).abs() <= TOL_SCORE).sum(dim=1) - 1).cpu().numpy())
+    near = np.concatenate(near)
+    for name, r in ranks.items():
+        diff = np.abs(np.asarray(r) - generic)
+        if r.shape != generic.shape or (diff > near).any():
+            raise SmokeFailure(f"{phase}: {name} ranks differ from the per-user loop beyond near-ties")
+        print(
+            f"  {phase}: {name} ranks of {len(users)} users against the per-user loop: "
+            f"{int((diff > 0).sum())} differ (by at most {int(diff.max())}); "
+            f"{int((near > 0).sum())} users have another item within {TOL_SCORE:.0e} of the target",
+            flush=True,
+        )
 
 
 def check_against_reference(phase, model, histories, ids, vals, lstm_apply, torch):

@@ -1,11 +1,13 @@
 """sbr-rs-tpu on PyTorch and CUDA: the port of :mod:`sbr_rs_tpu` to NVIDIA
 Hopper (H100), beside the JAX package it is held against.
 
-So far it trains and serves the LSTM family: ``fit`` (dense table
-updates), user representations, ``predict`` and the exact batched top-k of
-``recommend_batch``, with the LSTM recurrence (forward and backward) and
-the catalog score + group-max as hand-written CUDA kernels (``csrc/``).
-This package imports torch and numpy, never jax.
+So far it trains, serves and evaluates the LSTM family: ``fit`` (dense
+table updates), user representations, ``predict``, the exact batched top-k
+of ``recommend_batch``, and MRR, hit rate and NDCG over the full catalog
+(:mod:`.evaluation`), with the LSTM recurrence (forward and backward), the
+catalog score + group-max and the catalog score + rank count as
+hand-written CUDA kernels (``csrc/``). This package imports torch and
+numpy, never jax.
 
 Example::
 
@@ -31,9 +33,10 @@ Example::
     )
     loss = model.fit(train.to_compressed())
     ids = model.recommend_batch([[1, 2, 3], [42]], k=10)
+    mrr = sbr.evaluation.mrr_score(model, test.to_compressed())
 """
 
-from . import data, datasets, errors, models, ops
+from . import data, datasets, errors, evaluation, models, ops
 from .errors import (
     DatasetError,
     FittingError,
@@ -47,6 +50,7 @@ __all__ = [
     "data",
     "datasets",
     "errors",
+    "evaluation",
     "models",
     "ops",
     "DatasetError",

@@ -1,7 +1,9 @@
 """Builds the CUDA kernels in ``csrc/`` and loads them with ``ctypes``.
 
 All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
-plain C interface, on the first CUDA use. The library lands in
+plain C interface, on the first CUDA use: one ``nvcc`` per source, all
+started together, then one link, so the build takes about as long as its
+slowest file. The library lands in
 ``build/sbr_rs_tpu_torch/`` at the root of the checkout, named by a hash of
 the sources and the flags, so an edited kernel rebuilds and an unchanged one
 loads at once. Every C entry point returns ``cudaGetLastError()`` after its
@@ -24,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sbr_rs_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _library = None  # the loaded CDLL; the package's only global state
@@ -69,16 +71,34 @@ def build_library() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelCompileError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    objects = [out.with_name(f"{out.stem}.{os.getpid()}.{src.stem}.o") for src in sources]
+    procs = []
+    try:
+        for src, obj in zip(sources, objects):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        for cmd, proc in procs:
+            log = proc.communicate()[0]
+            _check_nvcc(cmd, proc.returncode, log)
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        link = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _check_nvcc(cmd, link.returncode, link.stdout)
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:  # a sibling failed first
+                proc.kill()
+                proc.communicate()
+        for path in (tmp, *objects):
+            path.unlink(missing_ok=True)
     return out
+
+
+def _check_nvcc(cmd, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise KernelCompileError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{log}")
 
 
 def library() -> ctypes.CDLL:

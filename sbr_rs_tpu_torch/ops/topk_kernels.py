@@ -1,23 +1,33 @@
-"""Catalog scoring fused with a group-max: a CUDA kernel and its plain version.
+"""Catalog scoring fused with a reduction: CUDA kernels and their plain versions.
 
-Counterpart of the serving half of :mod:`sbr_rs_tpu.ops.pallas_topk`
-(phase 1 of the exact two-phase top-k in ``models/base.py``). Both entry
-points score table rows ``[C, Cc]`` (f32, or bf16 upcast inside the kernel)
-against bias-augmented user representations ``reps_aug [U, Cc]`` (f32),
-set a score to ``-inf`` unless its row is inside the catalog
-(``lo + i < n``) and inside the call (``i < C``), and keep only group
-maxima, so the ``[C, U]`` score matrix never reaches device memory:
+Counterpart of :mod:`sbr_rs_tpu.ops.pallas_topk`. Every entry point scores
+table rows ``[C, Cc]`` (f32, or bf16 upcast inside the kernel) against
+bias-augmented user representations ``reps_aug [U, Cc]`` (f32) and reduces
+the scores on the chip, so the ``[C, U]`` score matrix never reaches
+device memory.
+
+Serving (phase 1 of the exact two-phase top-k in ``models/base.py``): a
+score is ``-inf`` unless its row is inside the catalog (``lo + i < n``) and
+inside the call (``i < C``), and only group maxima are kept:
 
 * :func:`score_groupmax` -- maxima over groups of ``group`` rows;
 * :func:`score_submax_groupmax` -- maxima over subgroups of ``sub`` rows
   and groups of ``group`` rows, from one pass.
 
 Both return :func:`groupmax_rows` rows, the rows past ``C`` all ``-inf``,
-as the TPU functions do. For CUDA tensors they launch
-``csrc/score_groupmax.cu`` and raise on input it does not take; for CPU
-tensors, and only for those, they run the plain versions
-(:func:`score_groupmax_plain`, :func:`score_submax_groupmax_plain`).
-Products are full f32 on both routes: no TF32, no tensor cores.
+as the TPU functions do (``csrc/score_groupmax.cu``).
+
+Evaluation (the fused rank counter of ``evaluation.py``):
+
+* :func:`score_count_ge` -- per user, the number of valid rows whose score
+  is ``>= targets[u]`` and the score of one probe row
+  (``csrc/score_count.cu``).
+
+For CUDA tensors the wrappers launch the kernels and raise on input they
+do not take; for CPU tensors, and only for those, they run the plain
+versions (:func:`score_groupmax_plain`, :func:`score_submax_groupmax_plain`,
+:func:`score_count_ge_plain`). Products are full f32 on both routes: no
+TF32, no tensor cores.
 """
 
 from __future__ import annotations
@@ -187,5 +197,97 @@ def score_submax_groupmax(
     return smax, gmax
 
 
+def count_supported(c: int, cc: int, u: int) -> bool:
+    """Shapes :func:`score_count_ge` takes: ``Cc <= 512`` and at least one
+    user. Any ``c`` works: a ragged tail is masked inside the kernel."""
+    return cc <= 512 and u >= 1
+
+
+def score_count_ge_plain(
+    chunk_rows: torch.Tensor,
+    reps_aug: torch.Tensor,
+    targets: torch.Tensor,
+    probe_local: torch.Tensor,
+    lo: int,
+    col_lo: int,
+    n: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(counts [U] int32, probe_scores [U] f32)`` through a ``[C, U]``
+    score matrix (the formulation of ``score_count_ge_xla``): ``counts[u]``
+    is the number of rows ``i`` with ``lo + i < n`` and ``i >= col_lo``
+    whose score is ``>= targets[u]``; ``probe_scores[u]`` is the score of
+    row ``clamp(probe_local[u], 0, C - 1)``."""
+    c = chunk_rows.shape[0]
+    u = reps_aug.shape[0]
+    st = chunk_rows.to(torch.float32) @ reps_aug.T  # [C, U]
+    local = torch.arange(c, device=st.device)
+    valid = ((lo + local) < n) & (local >= col_lo)
+    counts = ((st >= targets[None, :]) & valid[:, None]).sum(dim=0, dtype=torch.int32)
+    probe = probe_local.to(torch.int64).clamp(0, c - 1)
+    return counts, st[probe, torch.arange(u, device=st.device)]
+
+
+def score_count_ge(
+    chunk_rows: torch.Tensor,
+    reps_aug: torch.Tensor,
+    targets: torch.Tensor,
+    probe_local: torch.Tensor,
+    lo: int,
+    col_lo: int,
+    n: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`score_count_ge_plain` fused: ``csrc/score_count.cu`` for CUDA
+    tensors. ``chunk_rows`` may be the whole catalog (``lo = col_lo = 0``)
+    or any slab of it; any ``U`` works. ``C = 0`` returns zeros without a
+    launch. ``score_count_ge.launches`` counts the kernel's launches."""
+    c, cc = chunk_rows.shape
+    u = reps_aug.shape[0]
+    if not count_supported(c, cc, u):
+        raise ValueError(f"score_count_ge does not take Cc={cc}, U={u}")
+    on_cuda = _route(chunk_rows, "score_count_ge")
+    dev = chunk_rows.device
+    if c == 0:
+        return (torch.zeros((u,), dtype=torch.int32, device=dev),
+                torch.zeros((u,), dtype=torch.float32, device=dev))
+    if not on_cuda:
+        return score_count_ge_plain(chunk_rows, reps_aug, targets, probe_local, lo, col_lo, n)
+    if chunk_rows.dtype == torch.float32:
+        fn = _build.library().sbr_score_count_f32
+    elif chunk_rows.dtype == torch.bfloat16:
+        fn = _build.library().sbr_score_count_bf16
+    else:
+        raise ValueError(f"score_count_ge: rows must be float32 or bfloat16, got {chunk_rows.dtype}")
+    for name, x, dtype, shape in (
+        ("reps_aug", reps_aug, torch.float32, (u, cc)),
+        ("targets", targets, torch.float32, (u,)),
+        ("probe_local", probe_local, torch.int64, (u,)),
+    ):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"score_count_ge: {name} must be a contiguous {dtype} {list(shape)} on {dev}, "
+                f"got {x.dtype} {list(x.shape)} on {x.device}"
+            )
+    if not chunk_rows.is_contiguous():
+        raise ValueError("score_count_ge: rows must be contiguous")
+    counts = torch.zeros((u,), dtype=torch.int32, device=dev)
+    probe_scores = torch.empty((u,), dtype=torch.float32, device=dev)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(
+            chunk_rows.data_ptr(), reps_aug.data_ptr(), targets.data_ptr(),
+            probe_local.data_ptr(), counts.data_ptr(), probe_scores.data_ptr(),
+            c, cc, u, int(lo), int(col_lo), int(n), stream,
+        )
+    _build.check(status, "score_count_ge")
+    score_count_ge.launches += 1
+    return counts, probe_scores
+
+
 score_groupmax.launches = 0
 score_submax_groupmax.launches = 0
+score_count_ge.launches = 0

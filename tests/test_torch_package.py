@@ -1,8 +1,9 @@
 """Package-level properties of the port (``sbr_rs_tpu_torch``), on the CPU:
 it never imports jax, its kernel wrappers take the plain versions for CPU
-tensors only (launch counters stay 0, also through ``fit``), it never falls
-back from CUDA, the sparse table update is refused until it is ported, and
-its hyperparameters and parameters round-trip with the JAX package's."""
+tensors only (launch counters stay 0, also through ``fit`` and evaluation),
+it never falls back from CUDA, the sparse table update is refused until it
+is ported, and its hyperparameters and parameters round-trip with the JAX
+package's."""
 
 import os
 import re
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from sbr_rs_tpu.models import lstm as jax_lstm
-from sbr_rs_tpu_torch import datasets
+from sbr_rs_tpu_torch import datasets, evaluation
 from sbr_rs_tpu_torch.models import Loss, Optimizer, engine, lstm
 from sbr_rs_tpu_torch.ops import _build, lstm_kernels, topk_kernels
 from sbr_rs_tpu_torch.utils.convert import params_from_numpy, params_to_numpy
@@ -27,7 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_out():
     code = (
         "import sys, sbr_rs_tpu_torch, sbr_rs_tpu_torch.data, sbr_rs_tpu_torch.datasets, "
-        "sbr_rs_tpu_torch.models.engine; assert 'jax' not in sys.modules, sorted(sys.modules)"
+        "sbr_rs_tpu_torch.models.engine, sbr_rs_tpu_torch.evaluation; assert 'jax' not in sys.modules, sorted(sys.modules)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
@@ -49,6 +50,7 @@ def zero_counters():
         lstm_kernels.lstm_bwd_dwh,
         topk_kernels.score_groupmax,
         topk_kernels.score_submax_groupmax,
+        topk_kernels.score_count_ge,
     )
     for fn in wrappers:
         fn.launches = 0
@@ -82,7 +84,9 @@ def test_cpu_tensors_take_the_plain_versions(zero_counters):
                        lstm_kernels.lstm_bwd_dwh_plain(hidden, keep, dxz))
     model = lstm.Hyperparameters(300, 4).embedding_dim(8).from_seed(0).build("cpu")
     assert len(model.recommend_batch([[1, 2], []], k=3)) == 2
-    model.fit(datasets.synthetic_interactions(20, 300, 8, rng=0).to_compressed())
+    data = datasets.synthetic_interactions(20, 300, 8, rng=0).to_compressed()
+    model.fit(data)
+    assert np.isfinite(evaluation.mrr_score(model, data))
     assert all(fn.launches == 0 for fn in zero_counters)
 
 
