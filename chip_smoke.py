@@ -15,7 +15,14 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    stated tolerance and the median time of each: the LSTM forward (K1), the
    LSTM backward (K2) and its dW_h reduction, the score + group-max kernels
    (K3/K4), the score + rank count kernel (K5: counts may differ only by
-   rows whose score lies within the tolerance of the target);
+   rows whose score lies within the tolerance of the target), and the
+   training step's row kernels at the sparse step's shapes: the row gather
+   (P1) and row read-modify-write (P2) on 33,024 sorted unique rows of a
+   10,000,000 x 128 f32 and a 20,000,000 x 128 bf16 table (bit for bit,
+   with the dropped sentinel interleaved for P2), WARP's candidate scores
+   with the table in shared memory (P3, fit-bench's 1682 x 33 table) and
+   read from device memory (P4, the probe's 1688 x 128 table and the
+   10M/20M tables at 16,384 positions x 5), within 1e-5 relative;
 4. ``recommend_batch(k=10)`` for 4096 users over a 10,000,000-item LSTM-127
    catalog (single-pass merge, launches the LSTM and score+submax+groupmax
    kernels), in users/s, checked against a plain full-catalog reference;
@@ -33,7 +40,12 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    repeated seen items and held-out items already seen;
 7. one training step over the kernel tower (K1 + K2) against the same step
    over the plain PyTorch tower (autograd through the time loop), same
-   parameters, batch and candidates, for both fit configurations below;
+   parameters, batch and candidates, for both fit configurations below,
+   with WARP's selections under the two towers compared (a flip is allowed
+   only where a candidate sits within 1e-4 of the margin);
+7b. one sparse step against one dense step of the port, same parameters,
+   batch and candidates: the bench configuration (Adagrad, f32 table) and
+   the ml1m configuration with a bf16 table (Adam, bf16 state);
 8. ``fit`` at full width, the ``ml1m`` configuration of
    ``benches/large_scale.py``: ML-1M-shaped synthetic data (6040 users x
    3706 items x 165), Coupled LSTM-128, T=128, Hinge, Adam, packed, batch
@@ -45,7 +57,17 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    the range over five continued fits), with a falling loss; one more fit
    under ``torch.profiler``; then ``recommend_batch(k=10)`` for 64 training
    histories, and MRR, hit rate@10 and NDCG@10 on the held-out users (a
-   single chunk: the chunked counter), above the untrained model's MRR.
+   single chunk: the chunked counter), above the untrained model's MRR;
+10. fit-10M-sparse, the ``items10m`` configuration of
+   ``benches/large_scale.py``: ``synthetic_interactions(20_000, 10_000_000,
+   50)``, LSTM-127 (the bench's default variant, Coupled), T=64, WARP,
+   Adagrad, lr 0.1, packed, batch 256, sparse updates, one epoch, a
+   5.12 GB f32 table and 5.12 GB of state: a warm-up fit, a timed fit in
+   examples/s, a profiled fit, then ``mrr_score`` of the trained model on
+   512 held-out users and 64 users' ranks against the per-user loop;
+11. fit-20M-bf16, the ``items20m_bf16`` configuration: the same at
+   20,000,000 items with a bf16 table and bf16 state: a warm-up fit and a
+   timed fit.
 
 It then prints the kernels' JSON line (each kernel's launches on the main
 paths, largest error, card and plain times, its bound on this card and the
@@ -57,7 +79,9 @@ those lines. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import itertools
 import json
 import os
 import statistics
@@ -90,6 +114,12 @@ TOL_STEP_RTOL, TOL_STEP_ATOL = 2e-4, 1e-3
 # Below this gradient magnitude a first Adam/Adagrad step is ill-conditioned:
 # lr * g / (|g| + eps) moves by a large share of lr when g moves by rounding.
 G_FLOOR = 1e-5
+# The sparse update's run sums are differences of a running sum (the JAX
+# package's design), so a row's summed gradient carries the rounding of the
+# rows sorted before it, about 1e-7 of the prefix. Adagrad's first step
+# lr * g / sqrt(g^2 + eps) multiplies that by up to 5e3 at |g| = 1e-5, so
+# phase 7b checks updated values from this |g| up (gradients everywhere).
+G_FLOOR_SPARSE = 1e-4
 
 # (T, B, D, variants) of K2's checks: the ml1m fit, the bench.py fit, and an
 # odd D whose w_h (Normal) is beyond a block's shared memory.
@@ -103,6 +133,20 @@ EVAL_REF_USERS = 64
 N_ITEMS_FUSED = 200_000
 USERS_FUSED = 300
 K5_ROWS = 1_000_000
+# The sparse step's row traffic (P1-P4): the probe's 33,024 rows (one
+# items10m step touches 256 x 65 + 256 x 64 occurrences), the 20M-item bf16
+# table of items20m_bf16, and WARP's positions at B=256 x T=64, K=5.
+ROWS_M = 33_024
+N_ITEMS_BF16 = 20_000_000
+CAND_P, CAND_K = 256 * 64, 5
+# P1/P2/P4 are timed over this many id sets in turn (8 x 34 MB of rows and
+# outputs, past the 50 MB L2), so each call finds its rows in device memory
+# as a training step does.
+COLD_SETS = 8
+FIT_USERS, FIT_ITEMS_PER_USER, FIT_T = 20_000, 50, 64
+# WARP selections under two towers may flip only where a candidate's margin
+# 1 - pos + cand lies this close to 0.
+TOL_MARGIN = 1e-4
 # Published peaks of one H100 SXM (dense): FP32 outside the tensor cores,
 # and HBM3. A kernel's bound is the larger of its FLOPs and its bytes (each
 # input read once, each output written once) over these.
@@ -127,7 +171,9 @@ def main() -> None:
     from sbr_rs_tpu_torch.models.towers import lstm_apply
     from sbr_rs_tpu_torch.ops import _build
     from sbr_rs_tpu_torch.ops import lstm_kernels as lk
+    from sbr_rs_tpu_torch.ops import row_kernels as rowk
     from sbr_rs_tpu_torch.ops import topk_kernels as tk
+    from sbr_rs_tpu_torch.ops.sampling import warp_select
 
     dev = torch.device("cuda", 0)
     # Full f32 for every plain matmul here: the references must not round
@@ -168,6 +214,27 @@ def main() -> None:
             e1.synchronize()
             times.append(e0.elapsed_time(e1))
         return statistics.median(times)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, reps=20):
+        """Device time per call of ``fn``: the self time of its kernels under
+        ``torch.profiler`` over ``reps`` calls after a warm-up. For a call of
+        tens of microseconds the host's launch cost from Python is as large
+        as the kernel, and CUDA events around one call would time the host."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        )
+        if busy_us <= 0:
+            raise SmokeFailure("torch.profiler saw no device time")
+        return busy_us / 1e3 / reps
 
     def compare(name, got, want, tol, quiet=False):
         if got.shape != want.shape:
@@ -407,6 +474,121 @@ def main() -> None:
     del rows32, reps, slab
     torch.cuda.empty_cache()
 
+    def check_equal(name, got, want):
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise SmokeFailure(f"{name}: not equal to the plain version")
+        print(f"  {name}: equal to the plain version, bit for bit", flush=True)
+
+    def cycling(fn, sets):
+        """``fn`` called on the next of ``sets`` at each call."""
+        it = itertools.cycle(sets)
+        return lambda: fn(next(it))
+
+    def check_cand(label, name, fn, haug, table, cand, timed, cold=False):
+        """P3/P4 against the plain gather + einsum, within TOL_REL of the
+        largest score; with ``timed``, device times and the bound (each
+        distinct row read once), over COLD_SETS candidate sets in turn when
+        ``cold``."""
+        got = fn(haug, table, cand)
+        want = rowk.cand_score_plain(haug, table, cand)
+        err = compare_rel(f"{name} {label}", got, want, TOL_REL)
+        if timed:
+            sets = [cand] + [torch.randint_like(cand, table.shape[0], generator=gen) for _ in range(COLD_SETS - 1)]
+            sets = sets if cold else [cand]
+            ms = device_ms(cycling(lambda c: fn(haug, table, c), sets))
+            plain_ms = device_ms(cycling(lambda c: rowk.cand_score_plain(haug, table, c), sets))
+            print(f"  device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  f"{f' ({COLD_SETS} candidate sets in turn)' if cold else ''}", flush=True)
+            rows = int(torch.unique(cand).numel())
+            (p, k), c = cand.shape, table.shape[1]
+            record(name, err, ms, plain_ms, work=(
+                2.0 * p * k * c, rows * c * table.element_size() + nbytes(haug, cand, got),
+            ))
+        else:
+            record(name, err)
+
+    print(
+        f"phase 3 P1/P2/P4 on the sparse step's tables: {N_ITEMS} x {DIM + 1} f32 and "
+        f"{N_ITEMS_BF16} x {DIM + 1} bf16, M={ROWS_M} sorted unique rows, P={CAND_P} x K={CAND_K}",
+        flush=True,
+    )
+    for n_rows, dtype in ((N_ITEMS, torch.float32), (N_ITEMS_BF16, torch.bfloat16)):
+        name = str(dtype).replace("torch.", "")
+        timed = dtype == torch.float32  # the probe's f32 shape is the one reported
+        table = torch.randn((n_rows, DIM + 1), device=dev, generator=gen, dtype=dtype)
+        ids = torch.randperm(n_rows, generator=gen, device=dev)[:ROWS_M].sort().values
+        check_equal(f"P1 gather_rows {name}", rowk.gather_rows(table, ids), rowk.gather_rows_plain(table, ids))
+        edges = torch.tensor([-5, 0, n_rows - 1, n_rows, n_rows + 7, 2**40], device=dev)  # clamped
+        check_equal(f"P1 gather_rows {name}, ids outside the table", rowk.gather_rows(table, edges),
+                    rowk.gather_rows_plain(table, edges))
+        # P2 as sparse_update calls it: the live rows with the dropped
+        # sentinel N between them, and deltas already in the table's dtype.
+        slots = torch.full((2 * ROWS_M,), n_rows, dtype=torch.int64, device=dev)
+        slots[1::2] = ids
+        delta = (torch.randn((2 * ROWS_M, DIM + 1), device=dev, generator=gen) * 1e-3).to(dtype)
+        got, want = table.clone(), table.clone()
+        rowk.scatter_add_rows_(got, slots, delta)
+        rowk.scatter_add_rows_plain(want, slots, delta)
+        check_equal(f"P2 scatter_add_rows {name} (sentinels interleaved), whole table", got, want)
+        moved = int((got != table).any(dim=1).sum())
+        if moved > ROWS_M or moved < ROWS_M * 0.99:
+            raise SmokeFailure(f"P2 {name}: {moved} rows moved for {ROWS_M} live ids")
+        del got, want
+        record("gather_rows", 0.0)
+        record("scatter_add_rows", 0.0)
+        if timed:
+            row_bytes = ROWS_M * (DIM + 1) * table.element_size()
+            sets = [ids] + [
+                torch.randperm(n_rows, generator=gen, device=dev)[:ROWS_M].sort().values
+                for _ in range(COLD_SETS - 1)
+            ]
+            ms = device_ms(cycling(lambda i: rowk.gather_rows(table, i), sets))
+            plain_ms = device_ms(cycling(lambda i: rowk.gather_rows_plain(table, i), sets))
+            lib_ms = device_ms(cycling(lambda i: table.index_select(0, i), sets))
+            warm_ms = device_ms(lambda: rowk.gather_rows(table, ids))
+            print(f"  P1 device time over {COLD_SETS} id sets in turn: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"index_select {lib_ms:.4f} ms; kernel on one id set (rows in L2) {warm_ms:.4f} ms", flush=True)
+            record("gather_rows", 0.0, ms, plain_ms, work=(0.0, 2 * row_bytes + nbytes(ids)), library_ms=lib_ms)
+            g = delta[1::2].contiguous()  # the live rows' deltas: the probe's function
+            ms = device_ms(cycling(lambda i: rowk.scatter_add_rows_(table, i, g), sets))
+            plain_ms = device_ms(cycling(lambda i: rowk.scatter_add_rows_plain(table, i, g), sets))
+            lib_ms = device_ms(cycling(lambda i: table.index_add_(0, i, g), sets))
+            warm_ms = device_ms(lambda: rowk.scatter_add_rows_(table, ids, g))
+            print(f"  P2 device time over {COLD_SETS} id sets in turn: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"index_add_ {lib_ms:.4f} ms; kernel on one id set (rows in L2) {warm_ms:.4f} ms", flush=True)
+            record("scatter_add_rows", 0.0, ms, plain_ms, work=(
+                float(g.numel()), 3 * row_bytes + nbytes(ids),
+            ), library_ms=lib_ms)
+            del g
+        haug = torch.randn((CAND_P, DIM + 1), device=dev, generator=gen) * (DIM + 1) ** -0.5
+        cand = torch.randint(0, n_rows, (CAND_P, CAND_K), device=dev, generator=gen)
+        check_cand(f"{name} {n_rows} x {DIM + 1}", "cand_score_rows", rowk.cand_score_rows, haug, table, cand,
+                   timed, cold=True)
+        del table, ids, slots, delta, haug, cand
+        torch.cuda.empty_cache()
+
+    print(
+        "phase 3 P3/P4 at fit-bench's table (1682 x 33), the probe's (1688 x 128) and rows wider than a "
+        "warp's registers hold (80 and 4000 x 640), P=8192 x K=5", flush=True,
+    )
+    for n_rows, c, dtype in (
+        (1682, 33, torch.float32), (1682, 33, torch.bfloat16), (1688, 128, torch.float32),
+        (80, 640, torch.float32), (4000, 640, torch.bfloat16),
+    ):
+        name = str(dtype).replace("torch.", "")
+        table = torch.randn((n_rows, c), device=dev, generator=gen, dtype=dtype)
+        haug = torch.randn((8192, c), device=dev, generator=gen) * c**-0.5
+        cand = torch.randint(0, n_rows, (8192, CAND_K), device=dev, generator=gen)
+        label = f"{name} {n_rows} x {c}"
+        if rowk.cand_score_fits_smem(table):
+            check_cand(label, "cand_score_smem", rowk.cand_score_smem, haug, table, cand,
+                       timed=(c, dtype) == (33, torch.float32))
+        check_cand(label, "cand_score_rows", rowk.cand_score_rows, haug, table, cand, timed=False)
+        ms = device_ms(lambda: rowk.cand_score_rows(haug, table, cand))
+        print(f"  cand_score_rows {label}: device time {ms:.4f} ms", flush=True)
+    del table, haug, cand
+    torch.cuda.empty_cache()
+
     # -- phase 4: the serving path at 10M items ------------------------------------
     t0 = time.perf_counter()
     model = (
@@ -469,10 +651,16 @@ def main() -> None:
         "score_groupmax": tk.score_groupmax,
         "score_submax_groupmax": tk.score_submax_groupmax,
         "score_count_ge": tk.score_count_ge,
+        "gather_rows": rowk.gather_rows,
+        "scatter_add_rows": rowk.scatter_add_rows_,
+        "cand_score_smem": rowk.cand_score_smem,
+        "cand_score_rows": rowk.cand_score_rows,
     }
     serving_kernels = ("lstm_fwd", "score_groupmax", "score_submax_groupmax")
     eval_kernels = ("lstm_fwd", "score_count_ge")
-    training_kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_dwh")
+    training_kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_dwh", "gather_rows")
+    warp_kernels = training_kernels + ("cand_score_smem",)  # fit-bench: the table fits shared memory
+    sparse_kernels = training_kernels + ("scatter_add_rows", "cand_score_rows")
     launches = dict.fromkeys(counters, 0)  # summed over the main-path runs
 
     def zero_counters():
@@ -525,8 +713,6 @@ def main() -> None:
     check_against_reference("phase 5", model_merge, hist_m, ids_m, vals_m, lstm_apply, torch)
 
     # -- phase 6: where a batch's device time goes (a separate traced run) ----------
-    from torch.profiler import ProfilerActivity, profile
-
     def profiled(label, fn, top):
         """Run ``fn`` once under ``torch.profiler`` and print its wall time,
         the device's busy time (sum of kernel self times), the idle share,
@@ -685,10 +871,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- the training path -------------------------------------------------------------
-    def ml1m_model():
+    def ml1m_model(dtype="float32"):
         return (
             lstm.Hyperparameters(3706, 128)
             .embedding_dim(128)
+            .table_dtype(dtype)
             .learning_rate(0.05)
             .loss(Loss.HINGE)
             .optimizer(Optimizer.ADAM)
@@ -727,39 +914,72 @@ def main() -> None:
     )
 
     # -- phase 7: one step, kernel tower against plain tower -------------------------------
+    def ulp(t):
+        """One unit in the last place of each entry of a bf16 tensor, 0 for
+        an f32 one: two f32 values a rounding apart may store one ulp apart."""
+        a = t.float().abs()
+        if t.dtype != torch.bfloat16:
+            return torch.zeros_like(a)
+        return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7), a)
+
     def step_grad(state):
         """The gradient one step from zero state used, read back from the
-        state: Adam's m = (1 - b1) g, Adagrad's acc = g^2 (magnitude)."""
+        state (Adam's m = (1 - b1) g, Adagrad's acc = g^2, magnitude), and
+        the slack of the state's storage rounding in the same units."""
         if "m" in state:
-            return state["m"].float() / 0.1
-        return state["acc"].float().sqrt()
+            return state["m"].float() / 0.1, ulp(state["m"]) / 0.1
+        acc = state["acc"].float()
+        return acc.sqrt(), (acc + ulp(state["acc"])).sqrt() - acc.sqrt()
 
-    def check_update(name, got, want, s_got, s_want):
+    def check_update(name, got, want, s_got, s_want, g_floor=G_FLOOR):
         """The gradients agree everywhere (1e-5 + 2e-4 |g|). The updated
-        values agree within TOL_STEP_RTOL/ATOL wherever |g| >= G_FLOOR; below
+        values agree within TOL_STEP_RTOL/ATOL wherever |g| >= g_floor; below
         it the first step's lr * g / (|g| + eps) turns the rounding noise of a
         nearly cancelled gradient into a different update, and those entries
-        are only counted. Returns (max diff on checked entries, count
+        are only counted. A bf16 table or state may also differ by one ulp of
+        its stored value. Returns (max diff on checked entries, count
         excluded)."""
+        slack = ulp(want)
         got, want = got.float(), want.float()
-        g_got, g_want = step_grad(s_got), step_grad(s_want)
-        gbad = (g_got - g_want).abs() > 1e-5 + 2e-4 * g_want.abs()
+        (g_got, _), (g_want, g_slack) = step_grad(s_got), step_grad(s_want)
+        gbad = (g_got - g_want).abs() > 1e-5 + 2e-4 * g_want.abs() + g_slack
         if bool(gbad.any()):
             raise SmokeFailure(
                 f"{name}: {int(gbad.sum())} gradient entries differ "
                 f"(max diff {float((g_got - g_want).abs().max()):.3e})"
             )
-        cond = g_want.abs() >= G_FLOOR
+        cond = g_want.abs() >= g_floor
         diff = (got - want).abs()
-        bad = cond & (diff > TOL_STEP_ATOL + TOL_STEP_RTOL * want.abs())
+        bad = cond & (diff > TOL_STEP_ATOL + TOL_STEP_RTOL * want.abs() + slack)
         if bool(bad.any()):
             raise SmokeFailure(
                 f"{name}: {int(bad.sum())} entries beyond rtol/atol (max diff {float(diff[bad].max()):.3e})"
             )
         return float(diff[cond].max()) if bool(cond.any()) else 0.0, int((~cond & (diff > TOL_STEP_ATOL)).sum())
 
-    for label, make, mat in (("ml1m", ml1m_model, ml1m_data), ("bench", bench_model, bench_data)):
-        model = make()
+    def warp_choices(params, tower, batch, cand):
+        """WARP's choice per position and every candidate's margin
+        ``1 - pos + cand`` under ``tower``, as the step computes them."""
+        table = params["item_table"]
+        b, t1 = batch["stream"].shape
+        with torch.no_grad():
+            rows = rowk.gather_rows(table, batch["stream"].reshape(-1)).reshape(b, t1, -1)
+            hidden = tower(params["tower"], rows[:, : t1 - 1, :-1], starts=batch["starts"])
+            haug = torch.cat([hidden, hidden.new_ones(hidden.shape[:2] + (1,))], dim=-1)
+            pos = (haug * rows[:, 1:]).sum(-1)
+            scores = rowk.cand_score(haug.reshape(b * (t1 - 1), -1), table, cand.reshape(b * (t1 - 1), -1))
+        return warp_select(pos, scores.reshape(cand.shape)), 1.0 - pos[..., None] + scores.reshape(cand.shape)
+
+    def result_of(params, state):
+        """Copies of a step's updated tensors and their optimizer state."""
+        return {
+            "item_table": (params["item_table"].clone(), {k: v.clone() for k, v in state["item_table"].items()}),
+            **{k: (v.clone(), {n_: s_.clone() for n_, s_ in state["tower"][k].items()})
+               for k, v in params["tower"].items()},
+        }
+
+    def step_inputs(model, mat):
+        """The first batch of ``mat``'s windows and seeded candidates."""
         hp = model.hyper
         stream, mask, starts, n, _ = model._windows(mat)
         rows = torch.arange(min(hp._batch_size, n), device=dev)
@@ -767,33 +987,57 @@ def main() -> None:
         k_cand = 5 if hp._loss == Loss.WARP else 1
         cand = torch.randint(0, hp._num_items, (len(rows), hp._max_sequence_length, k_cand),
                              generator=gen, device=dev)
+        return batch, cand
+
+    def fresh_params(model):
+        return {
+            "item_table": model._params["item_table"].clone(),
+            "tower": {k: v.clone() for k, v in model._params["tower"].items()},
+        }
+
+    for label, make, mat in (("ml1m", ml1m_model, ml1m_data), ("bench", bench_model, bench_data)):
+        model = make()
+        hp = model.hyper
+        batch, cand = step_inputs(model, mat)
         cfg = model._engine_config()
         towers_ = {
             "kernel": model._tower_fn(),
             "plain": functools.partial(lstm_apply, coupled=model._coupled()),
         }
+        flips = 0
+        if hp._loss == Loss.WARP:
+            (ck, mk), (cp, mp) = (warp_choices(model._params, tw, batch, cand) for tw in towers_.values())
+            flipped = (ck != cp) & (batch["mask"] > 0)
+            near = (torch.minimum(mk.abs(), mp.abs()) <= TOL_MARGIN).any(dim=-1)
+            flips = int(flipped.sum())
+            print(
+                f"  phase 7 {label}: WARP selections flip at {flips} of {int((batch['mask'] > 0).sum())} "
+                f"supervised positions between the towers, {int((flipped & near).sum())} of them within "
+                f"{TOL_MARGIN:.0e} of the margin", flush=True,
+            )
+            if bool((flipped & ~near).any()):
+                raise SmokeFailure(f"phase 7 {label}: a WARP selection flips away from the margin")
         out = {}
         for name, tower in towers_.items():
-            params = {
-                "item_table": model._params["item_table"].clone(),
-                "tower": {k: v.clone() for k, v in model._params["tower"].items()},
-            }
+            params = fresh_params(model)
             state = engine.init_opt_state(hp._optimizer, params)
             step = engine.make_train_step(cfg, tower)
             params, state, loss = step(params, state, batch, cand)
-            # Copies of the one-step result: the timing below steps on in place.
-            result = {
-                "item_table": (params["item_table"].clone(), {k: v.clone() for k, v in state["item_table"].items()}),
-                **{k: (v.clone(), {n_: s_.clone() for n_, s_ in state["tower"][k].items()})
-                   for k, v in params["tower"].items()},
-            }
+            result = result_of(params, state)  # the timing below steps on in place
             ms = time_ms(lambda: step(params, state, batch, cand), reps=3)
             out[name] = (result, float(loss), ms)
-        (rk, loss_k, msk), (rp, loss_p, msp) = out["kernel"], out["plain"]
+        (r_k, loss_k, msk), (r_p, loss_p, msp) = out["kernel"], out["plain"]
         if not abs(loss_k - loss_p) <= TOL_STEP_LOSS * abs(loss_p):
             raise SmokeFailure(f"phase 7 {label}: loss {loss_k} against plain {loss_p}")
+        if flips:
+            # A near-margin flip changes one negative's rows and the tower's
+            # gradient: the updates are not comparable, the losses are.
+            print(f"phase 7 step {label}: loss {loss_k:.6f} vs plain tower {loss_p:.6f}; updates not "
+                  f"compared after {flips} near-margin WARP flips", flush=True)
+            del model, out, r_k, r_p, params, state
+            continue
         checked = {
-            k: check_update(f"phase 7 {label} {k}", rk[k][0], rp[k][0], rk[k][1], rp[k][1]) for k in rk
+            k: check_update(f"phase 7 {label} {k}", r_k[k][0], r_p[k][0], r_k[k][1], r_p[k][1]) for k in r_k
         }
         print(
             f"phase 7 step {label}: loss {loss_k:.6f} vs plain tower {loss_p:.6f}; gradients agree; "
@@ -802,7 +1046,43 @@ def main() -> None:
             f"{sum(c for _, c in checked.values())} entries below it beyond atol; step "
             f"{msk:.2f} ms, plain tower {msp:.2f} ms", flush=True,
         )
-        del model, out, rk, rp, params, state
+        del model, out, r_k, r_p, params, state
+    torch.cuda.empty_cache()
+
+    # -- phase 7b: the sparse table update against the dense one -------------------------
+    for label, make, mat in (
+        ("bench (Adagrad, f32 table)", bench_model, bench_data),
+        ("ml1m (Adam, bf16 table and state)", lambda: ml1m_model("bfloat16"), ml1m_data),
+    ):
+        model = make()
+        hp = model.hyper
+        batch, cand = step_inputs(model, mat)
+        out = {}
+        for sparse in (True, False):
+            cfg = dataclasses.replace(model._engine_config(), sparse_updates=sparse)
+            params = fresh_params(model)
+            state = engine.init_opt_state(hp._optimizer, params)
+            step = engine.make_train_step(cfg, model._tower_fn())
+            params, state, loss = step(params, state, batch, cand)
+            result = result_of(params, state)
+            ms = time_ms(lambda: step(params, state, batch, cand), reps=3)
+            out[sparse] = (result, float(loss), ms)
+        (r_s, loss_s, ms_s), (r_d, loss_d, ms_d) = out[True], out[False]
+        if not abs(loss_s - loss_d) <= TOL_STEP_LOSS * abs(loss_d):
+            raise SmokeFailure(f"phase 7b {label}: loss {loss_s} against dense {loss_d}")
+        checked = {
+            k: check_update(f"phase 7b {label} {k}", r_s[k][0], r_d[k][0], r_s[k][1], r_d[k][1], G_FLOOR_SPARSE)
+            for k in r_s
+        }
+        touched = int((r_s["item_table"][0] != model._params["item_table"]).any(dim=1).sum())
+        print(
+            f"phase 7b step {label}: sparse loss {loss_s:.6f} vs dense {loss_d:.6f}; gradients agree; "
+            f"updated values max diff {max(e for e, _ in checked.values()):.3e} where |g| >= {G_FLOOR_SPARSE:.0e} "
+            f"(rtol {TOL_STEP_RTOL:.0e}, atol {TOL_STEP_ATOL:.0e}, plus one ulp of a bf16 value), "
+            f"{sum(c for _, c in checked.values())} entries below it beyond atol; {touched} of "
+            f"{hp._num_items} rows moved; step sparse {ms_s:.2f} ms, dense {ms_d:.2f} ms", flush=True,
+        )
+        del model, out, r_s, r_d, params, state
     torch.cuda.empty_cache()
 
     # -- phase 8: fit at full width, the ml1m configuration ---------------------------------
@@ -833,7 +1113,7 @@ def main() -> None:
         raise SmokeFailure(f"phase 9: epoch losses {h0.epoch_losses.tolist()} do not fall")
     zero_counters()
     again = model.fit(bench_data)
-    read_counters("bench fit", training_kernels)
+    read_counters("bench fit", warp_kernels)
     continued = [model.history]
     for _ in range(BENCH_REPEATS - 1):
         again = model.fit(bench_data)
@@ -874,6 +1154,82 @@ def main() -> None:
     if not all(np.isfinite(v) for v in metrics.values()) or not metrics["MRR"] > untrained:
         raise SmokeFailure(f"phase 9: metrics {metrics}, untrained MRR {untrained}")
 
+    del model, held_out, bench_data, ml1m_data
+    torch.cuda.empty_cache()
+
+    # -- phases 10 and 11: sparse training at 10M (f32) and 20M (bf16) items ---------------
+    def items_model(num_items, dtype):
+        """``benches/large_scale.py bench_items`` at dim 127, as ``items10m``
+        and ``items20m_bf16`` build it (the LSTM variant left at its default)."""
+        return (
+            lstm.Hyperparameters(num_items, FIT_T)
+            .embedding_dim(DIM)
+            .learning_rate(0.1)
+            .loss(Loss.WARP)
+            .optimizer(Optimizer.ADAGRAD)
+            .num_epochs(1)
+            .batch_size(256)
+            .packed(True)
+            .sparse_updates(True)
+            .table_dtype(dtype)
+            .from_seed(0)
+            .build(dev)
+        )
+
+    for phase, num_items, dtype in (("10", N_ITEMS, "float32"), ("11", N_ITEMS_BF16, "bfloat16")):
+        label = f"fit-{num_items // 1_000_000}M-{'sparse' if dtype == 'float32' else 'bf16'}"
+        t0 = time.perf_counter()
+        mat = datasets.synthetic_interactions(FIT_USERS, num_items, FIT_ITEMS_PER_USER, rng=0).to_compressed()
+        t_data = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = items_model(num_items, dtype)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        if not model._engine_config().sparse_updates:
+            raise SmokeFailure(f"phase {phase}: the sparse update is not on")
+        torch.cuda.reset_peak_memory_stats()
+        warm = model.fit(mat)
+        wall_warm = model.history.wall_s
+        zero_counters()
+        loss = model.fit(mat)
+        h = model.history
+        read_counters(label, sparse_kernels)
+        if not (np.isfinite(warm) and np.isfinite(loss)):
+            raise SmokeFailure(f"phase {phase}: losses {warm}, {loss}")
+        steps = h.num_epochs * -(-model._windows(mat)[3] // model.hyper._batch_size)
+        print(
+            f"phase {phase} {label} ({num_items} items, {dtype} table and Adagrad state, LSTM-{DIM} "
+            f"{model.hyper._lstm_variant.value}, T={FIT_T}, WARP, packed, batch 256, sparse updates): "
+            f"{h.examples_per_sec:.1f} examples/s ({h.examples_per_epoch} examples, {steps} steps, "
+            f"{h.wall_s:.3f} s; warm-up fit {wall_warm:.3f} s), loss {loss:.6f} (warm-up {warm:.6f}); "
+            f"data made in {t_data:.1f} s, model built in {t_build:.1f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True,
+        )
+        if phase == "10":
+            profiled(f"phase 10 profile, one {label} fit", lambda: model.fit(mat), top=14)
+            # The trained 10M-item model through the evaluation path.
+            test = datasets.synthetic_interactions(EVAL_USERS[0], num_items, 20, rng=1).to_compressed()
+            evaluation.mrr_score(model, test)  # warm-up
+            zero_counters()
+            t0 = time.perf_counter()
+            mrr = evaluation.mrr_score(model, test)
+            t_eval = time.perf_counter() - t0
+            read_counters(f"{label} evaluation", eval_kernels)
+            print(f"phase 10 eval of the trained model, U={EVAL_USERS[0]}: MRR {mrr:.6f} in "
+                  f"{t_eval * 1e3:.1f} ms", flush=True)
+            if not (np.isfinite(mrr) and 0 < mrr <= 1):
+                raise SmokeFailure(f"phase 10: MRR {mrr}")
+            ptr = test.user_pointers
+            sub = sbr_data.CompressedInteractions(
+                EVAL_REF_USERS, num_items, ptr[: EVAL_REF_USERS + 1], test.item_ids[: ptr[EVAL_REF_USERS]],
+                test.timestamps[: ptr[EVAL_REF_USERS]],
+            )
+            check_ranks("phase 10", model, sub, {"batched (K5)": evaluation._ranks_batched(model, sub)},
+                        evaluation._ranks_generic(model, sub), torch)
+            del test, sub
+        del model, mat
+        torch.cuda.empty_cache()
+
     kernels = []
     sources = {
         "lstm_fwd": ("sbr_rs_tpu_torch/csrc/lstm_fwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:49"),
@@ -882,6 +1238,10 @@ def main() -> None:
         "score_groupmax": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:108"),
         "score_submax_groupmax": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:130"),
         "score_count_ge": ("sbr_rs_tpu_torch/csrc/score_count.cu", "sbr_rs_tpu/ops/pallas_topk.py:365"),
+        "gather_rows": ("sbr_rs_tpu_torch/csrc/row_gather.cu", "scripts/row_pipeline_probe.py:48"),
+        "scatter_add_rows": ("sbr_rs_tpu_torch/csrc/row_gather.cu", "scripts/row_pipeline_probe.py:70"),
+        "cand_score_smem": ("sbr_rs_tpu_torch/csrc/cand_score.cu", "scripts/cand_gather_probe.py:112"),
+        "cand_score_rows": ("sbr_rs_tpu_torch/csrc/cand_score.cu", "scripts/cand_gather_probe.py:156"),
     }
     for name, (source, replaces) in sources.items():
         r = report[name]

@@ -2,17 +2,18 @@
 Hopper (H100), beside the JAX package it is held against.
 
 So far it trains, serves and evaluates the LSTM family: ``fit`` (dense
-table updates), user representations, ``predict``, the exact batched top-k
-of ``recommend_batch``, and MRR, hit rate and NDCG over the full catalog
-(:mod:`.evaluation`), with the LSTM recurrence (forward and backward), the
-catalog score + group-max and the catalog score + rank count as
+table updates for small catalogs, sparse touched-row updates for large
+ones, f32 or bf16 tables), user representations, ``predict``, the exact
+batched top-k of ``recommend_batch``, and MRR, hit rate and NDCG over the
+full catalog (:mod:`.evaluation`), with the LSTM recurrence (forward and
+backward), the catalog score + group-max, the catalog score + rank count,
+the row gather, the row read-modify-write and WARP's candidate score as
 hand-written CUDA kernels (``csrc/``). This package imports torch and
 numpy, never jax.
 
 Example::
 
     import numpy as np
-    import torch
     import sbr_rs_tpu_torch as sbr
     from sbr_rs_tpu_torch.models import Loss, Optimizer, lstm
 
@@ -29,7 +30,7 @@ Example::
         .batch_size(256)
         .packed(True)
         .from_seed(42)
-        .build(torch.device("cuda"))
+        .build()  # the card; build("cpu") runs the plain versions
     )
     loss = model.fit(train.to_compressed())
     ids = model.recommend_batch([[1, 2, 3], [42]], k=10)

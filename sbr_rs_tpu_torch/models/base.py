@@ -28,8 +28,8 @@ Serving (``recommend_batch``):
   with a per-chunk seen mask (:func:`topk_streamed_bigseen`).
 
 The budgets keep the JAX package's values, so both packages take the same
-branch for the same shapes. The sparse table update, ``approximate=True``
-and the sharded paths are not ported yet. PyTorch runs eagerly, so there is
+branch for the same shapes. ``approximate=True`` and the sharded paths are
+not ported yet. PyTorch runs eagerly, so there is
 no program cache.
 """
 

@@ -7,21 +7,28 @@ layout), as the JAX step does it:
 
 1. negative candidates, K=5 for WARP, K=1 otherwise, drawn uniformly by
    the caller (``src/models/sequence_model.rs:47-68, 125-138``);
-2. ONE gather of the ``[B, T + 1]`` stream rows serves inputs and positives;
-   the loss is differentiated with respect to the gathered row COPIES (and
-   the tower), never the table, so the backward costs O(batch);
+2. ONE gather of the ``[B, T + 1]`` stream rows serves inputs and positives
+   (:func:`..ops.row_kernels.gather_rows`, as are all the step's row
+   gathers); the loss is differentiated with respect to the gathered row
+   COPIES (and the tower), never the table, so the backward costs O(batch);
 3. the tower runs once; WARP scores the candidates against the detached
-   hidden state and keeps the first margin violator, else the last draw;
-   only the selected negative's rows join the differentiated set;
+   hidden state (:func:`..ops.row_kernels.cand_score`: the ``[B, T, K, C]``
+   candidate rows are never built) and keeps the first margin violator,
+   else the last draw; only the selected negative's rows join the
+   differentiated set;
 4. scores dot a bias-augmented hidden state against whole fused rows; the
    pairwise loss is masked and summed (``src/models/lstm.rs:322-328``);
-5. one scatter-add gathers the row gradients with touched and bias-touched
-   counts; the table takes :func:`..ops.optimizers.dense_row_update`, the
-   tower :func:`..ops.optimizers.dense_update`.
+5. the table update, one of two:
+   * dense (small catalogs): one scatter-add gathers the row gradients with
+     touched and bias-touched counts, and the whole table takes
+     :func:`..ops.optimizers.dense_row_update`;
+   * sparse (``sparse_updates=True``): :func:`..ops.optimizers.dedupe_and_sum`
+     sums each touched row's gradients, and
+     :func:`..ops.optimizers.sparse_update` updates those rows alone;
+   the tower takes :func:`..ops.optimizers.dense_update`.
 
-Only the dense table update is ported; the sparse one waits for the sparse
-slice. PyTorch runs eagerly: there is no compiled program, and the step
-returns its loss as a device tensor so the host never waits on it.
+PyTorch runs eagerly: there is no compiled program, and the step returns
+its loss as a device tensor so the host never waits on it.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from ..ops import optimizers as opt_ops
 from ..ops.losses import pairwise_loss
+from ..ops.row_kernels import cand_score, gather_rows
 from ..ops.sampling import WARP_CANDIDATES, warp_select_onehot
 from . import Loss, Optimizer
 
@@ -45,8 +53,9 @@ class EngineConfig:
     """What the step closes over (the JAX package's fields and defaults).
     ``lr_schedule``: ``"constant"`` (the reference's), ``"linear"`` (decay
     to 0), ``"cosine"`` or ``"warmup_cosine"`` (linear warm-up over the
-    first 10 % of steps). ``sparse_updates=True`` is the sparse
-    touched-rows path, which is not ported yet."""
+    first 10 % of steps). ``sparse_updates``: the touched-rows table
+    update (sort + segment sums, traffic O(batch)) instead of the dense
+    full-table one."""
 
     num_items: int
     loss: Loss
@@ -145,12 +154,6 @@ def make_train_step(
     state IN PLACE and returns the same tensors; ``opt_state["step"]``
     advances by one.
     """
-    if config.sparse_updates:
-        raise NotImplementedError(
-            "sparse_updates=True (the sort + segment-sum touched-rows update) "
-            "is not ported yet: it comes with the sparse large-catalog slice "
-            "(slice 5); use sparse_updates=False"
-        )
     is_warp = config.loss == Loss.WARP
     k_cand = WARP_CANDIDATES if is_warp else 1
     num_items = config.num_items
@@ -181,8 +184,7 @@ def make_train_step(
 
         def gather(idx: torch.Tensor) -> torch.Tensor:
             # f32 copies of the rows, whatever the storage dtype.
-            rows = table.index_select(0, idx.reshape(-1)).to(torch.float32)
-            return rows.reshape(idx.shape + (c_param,))
+            return gather_rows(table, idx.reshape(-1)).reshape(idx.shape + (c_param,))
 
         rows_s = gather(stream).requires_grad_()
         tower = {name: p.detach().requires_grad_() for name, p in params["tower"].items()}
@@ -192,8 +194,10 @@ def make_train_step(
         pos_score = (haug * pos_rows).sum(-1)
         if is_warp:
             with torch.no_grad():
-                cand_score = torch.einsum("bte,btke->btk", haug.detach(), gather(candidates))
-                onehot = warp_select_onehot(pos_score.detach(), cand_score)
+                cand_scores = cand_score(
+                    haug.detach().reshape(b * t, c_param), table, candidates.reshape(b * t, k_cand)
+                ).reshape(b, t, k_cand)
+                onehot = warp_select_onehot(pos_score.detach(), cand_scores)
                 negatives = (candidates * onehot.long()).sum(-1)
         else:
             negatives = candidates[:, :, 0]
@@ -220,23 +224,32 @@ def make_train_step(
         bias_occ = torch.cat([tg_occ, mask_flat])
         flat_idx = torch.cat([stream.reshape(-1), negatives.reshape(-1)])
 
-        # ONE scatter-add of the row gradients plus touched and bias-touched
-        # counts; invalid occurrences land on a dropped row past the table.
-        scatter_idx = torch.where(occ_valid, flat_idx, num_items)
-        payload = torch.cat(
-            [d_rows, d_rows.new_ones((d_rows.shape[0], 1)), bias_occ[:, None].to(d_rows.dtype)],
-            dim=1,
-        )
-        d_aug = payload.new_zeros((num_items + 1, payload.shape[1]))
-        d_aug.index_add_(0, scatter_idx, payload)
-        d_aug = d_aug[:num_items]
-
         step = opt_state["step"]
         lr_t = scheduled_lr(lr, config.lr_schedule, step, total_steps)
-        opt_ops.dense_row_update(
-            kind, lr_t, l2, table, opt_state["item_table"], d_aug[:, :-2],
-            d_aug[:, -2] > 0, step, bias_touched=d_aug[:, -1] > 0,
-        )
+        if config.sparse_updates:
+            dd, summed, bias_valid = opt_ops.dedupe_and_sum(
+                flat_idx, occ_valid, d_rows, bias_occ, num_items
+            )
+            opt_ops.sparse_update(
+                kind, lr_t, l2, table, opt_state["item_table"], dd, summed, step,
+                bias_valid=bias_valid,
+            )
+        else:
+            # ONE scatter-add of the row gradients plus touched and
+            # bias-touched counts; invalid occurrences land on a dropped row
+            # past the table.
+            scatter_idx = torch.where(occ_valid, flat_idx, num_items)
+            payload = torch.cat(
+                [d_rows, d_rows.new_ones((d_rows.shape[0], 1)), bias_occ[:, None].to(d_rows.dtype)],
+                dim=1,
+            )
+            d_aug = payload.new_zeros((num_items + 1, payload.shape[1]))
+            d_aug.index_add_(0, scatter_idx, payload)
+            d_aug = d_aug[:num_items]
+            opt_ops.dense_row_update(
+                kind, lr_t, l2, table, opt_state["item_table"], d_aug[:, :-2],
+                d_aug[:, -2] > 0, step, bias_touched=d_aug[:, -1] > 0,
+            )
         for name, p in params["tower"].items():
             opt_ops.dense_update(kind, lr_t, l2, p, opt_state["tower"][name], d_tower[name], step)
         opt_state["step"] = step + 1

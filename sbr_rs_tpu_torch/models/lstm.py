@@ -51,8 +51,10 @@ class Hyperparameters(base.Hyperparameters):
         hp._lstm_variant = LSTMVariant(d["lstm_variant"])
         return hp
 
-    def build(self, device: "torch.device | str") -> "ImplicitLSTMModel":
-        """Build a model on ``device`` (reference ``src/models/lstm.rs:197-201``)."""
+    def build(self, device: "torch.device | str" = "cuda") -> "ImplicitLSTMModel":
+        """Build a model on ``device`` (reference ``src/models/lstm.rs:197-201``):
+        the card unless the caller asks for ``"cpu"``. Without CUDA a
+        ``cuda`` build raises; nothing falls back to the CPU."""
         return ImplicitLSTMModel(self, device)
 
 

@@ -9,8 +9,9 @@ key. After two epochs on small synthetic data the returned loss agrees
 within rtol 1e-4 and the parameters within rtol 2e-4, atol 1e-3 (Adagrad's
 g / sqrt(g^2 + eps) amplifies the association noise of nearly cancelling
 rows, as in ``tests/test_engine_golden.py``); the trained models then
-recommend alike. The JAX fits are few and tiny: each compiles a whole-fit
-program here.
+recommend alike. Both table updates are held so: the dense one and the
+sparse touched-rows one. The JAX fits are few and tiny: each compiles a
+whole-fit program here.
 """
 
 import jax
@@ -35,7 +36,7 @@ def _data():
     return datasets.synthetic_interactions(40, NUM_ITEMS, 15, rng=0).to_compressed()
 
 
-def _hyper(variant, loss, kind, packed, epochs=2):
+def _hyper(variant, loss, kind, packed, sparse, epochs=2):
     return (
         jax_lstm.Hyperparameters(NUM_ITEMS, 8)
         .embedding_dim(8)
@@ -47,6 +48,7 @@ def _hyper(variant, loss, kind, packed, epochs=2):
         .num_epochs(epochs)
         .batch_size(16)
         .packed(packed)
+        .sparse_updates(sparse)
         .from_seed(3)
     )
 
@@ -73,17 +75,20 @@ def _numpy_params(model):
 
 
 @pytest.mark.parametrize(
-    "variant, loss, kind, packed",
+    "variant, loss, kind, packed, sparse",
     [
-        (lstm.LSTMVariant.NORMAL, Loss.WARP, Optimizer.ADAGRAD, True),
-        (lstm.LSTMVariant.COUPLED, Loss.HINGE, Optimizer.ADAM, False),
+        (lstm.LSTMVariant.NORMAL, Loss.WARP, Optimizer.ADAGRAD, True, False),
+        (lstm.LSTMVariant.COUPLED, Loss.HINGE, Optimizer.ADAM, False, False),
+        (lstm.LSTMVariant.NORMAL, Loss.WARP, Optimizer.ADAGRAD, True, True),
+        (lstm.LSTMVariant.COUPLED, Loss.BPR, Optimizer.ADAM, False, True),
     ],
 )
-def test_fit_matches_jax(variant, loss, kind, packed):
+def test_fit_matches_jax(variant, loss, kind, packed, sparse):
     mat = _data()
     jmat = jax_datasets.synthetic_interactions(40, NUM_ITEMS, 15, rng=0).to_compressed()
-    jm = _hyper(variant, loss, kind, packed).build()
+    jm = _hyper(variant, loss, kind, packed, sparse).build()
     pm = lstm.Hyperparameters.from_dict(jm.hyper.to_dict()).build("cpu")
+    assert pm._engine_config().sparse_updates is sparse
     pm.load_numpy_params(_numpy_params(jm))
     _draw_like_jax(pm, jm._key)
 

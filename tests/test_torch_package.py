@@ -1,9 +1,9 @@
 """Package-level properties of the port (``sbr_rs_tpu_torch``), on the CPU:
 it never imports jax, its kernel wrappers take the plain versions for CPU
 tensors only (launch counters stay 0, also through ``fit`` and evaluation),
-it never falls back from CUDA, the sparse table update is refused until it
-is ported, and its hyperparameters and parameters round-trip with the JAX
-package's."""
+it never falls back from CUDA, large catalogs take the sparse table update
+without being asked, and its hyperparameters and parameters round-trip with
+the JAX package's."""
 
 import os
 import re
@@ -19,7 +19,7 @@ import torch
 from sbr_rs_tpu.models import lstm as jax_lstm
 from sbr_rs_tpu_torch import datasets, evaluation
 from sbr_rs_tpu_torch.models import Loss, Optimizer, engine, lstm
-from sbr_rs_tpu_torch.ops import _build, lstm_kernels, topk_kernels
+from sbr_rs_tpu_torch.ops import _build, lstm_kernels, row_kernels, topk_kernels
 from sbr_rs_tpu_torch.utils.convert import params_from_numpy, params_to_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -28,7 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_out():
     code = (
         "import sys, sbr_rs_tpu_torch, sbr_rs_tpu_torch.data, sbr_rs_tpu_torch.datasets, "
-        "sbr_rs_tpu_torch.models.engine, sbr_rs_tpu_torch.evaluation; assert 'jax' not in sys.modules, sorted(sys.modules)"
+        "sbr_rs_tpu_torch.models.engine, sbr_rs_tpu_torch.evaluation, sbr_rs_tpu_torch.ops.row_kernels; assert 'jax' not in sys.modules, sorted(sys.modules)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
@@ -51,6 +51,10 @@ def zero_counters():
         topk_kernels.score_groupmax,
         topk_kernels.score_submax_groupmax,
         topk_kernels.score_count_ge,
+        row_kernels.gather_rows,
+        row_kernels.scatter_add_rows_,
+        row_kernels.cand_score_smem,
+        row_kernels.cand_score_rows,
     )
     for fn in wrappers:
         fn.launches = 0
@@ -82,11 +86,23 @@ def test_cpu_tensors_take_the_plain_versions(zero_counters):
     dxz = lstm_kernels.lstm_bwd_plain(xz, w_h, hidden, cell, g, keep, False)[0]
     assert torch.equal(lstm_kernels.lstm_bwd_dwh(hidden, keep, dxz),
                        lstm_kernels.lstm_bwd_dwh_plain(hidden, keep, dxz))
-    model = lstm.Hyperparameters(300, 4).embedding_dim(8).from_seed(0).build("cpu")
-    assert len(model.recommend_batch([[1, 2], []], k=3)) == 2
-    data = datasets.synthetic_interactions(20, 300, 8, rng=0).to_compressed()
-    model.fit(data)
-    assert np.isfinite(evaluation.mrr_score(model, data))
+    table = torch.from_numpy(rng.normal(size=(50, 9)).astype(np.float32))
+    idx = torch.tensor([3, 50, 7, 50])
+    assert torch.equal(row_kernels.gather_rows(table, idx), row_kernels.gather_rows_plain(table, idx))
+    delta = torch.ones((4, 9))
+    want = row_kernels.scatter_add_rows_plain(table.clone(), idx, delta)
+    assert torch.equal(row_kernels.scatter_add_rows_(table, idx, delta), want)
+    haug = torch.from_numpy(rng.normal(size=(6, 9)).astype(np.float32))
+    cand = torch.from_numpy(rng.integers(0, 50, (6, 5)))
+    for fn in (row_kernels.cand_score, row_kernels.cand_score_smem, row_kernels.cand_score_rows):
+        assert torch.equal(fn(haug, table, cand), row_kernels.cand_score_plain(haug, table, cand))
+    for sparse in (False, True):
+        model = (lstm.Hyperparameters(300, 4).embedding_dim(8).loss(Loss.WARP)
+                 .sparse_updates(sparse).from_seed(0).build("cpu"))
+        assert len(model.recommend_batch([[1, 2], []], k=3)) == 2
+        data = datasets.synthetic_interactions(20, 300, 8, rng=0).to_compressed()
+        model.fit(data)
+        assert np.isfinite(evaluation.mrr_score(model, data))
     assert all(fn.launches == 0 for fn in zero_counters)
 
 
@@ -94,6 +110,8 @@ def test_no_fallback_from_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         lstm.Hyperparameters(100, 4).embedding_dim(8).build(torch.device("cuda"))
+    with pytest.raises(RuntimeError):  # the card is the default device
+        lstm.Hyperparameters(100, 4).embedding_dim(8).build()
     with pytest.raises(ValueError):
         lstm.Hyperparameters(100, 4).embedding_dim(8).build(torch.device("meta"))
     meta = torch.empty((4096, 9), device="meta")
@@ -108,22 +126,39 @@ def test_no_fallback_from_cuda(monkeypatch):
                               seq, seq, seq, torch.empty((2, 3, 1)), False)
     with pytest.raises(ValueError):
         lstm_kernels.lstm_bwd_dwh(seq, torch.empty((2, 3, 1)), torch.empty((2, 3, 32)))
+    rows = torch.empty((10, 9), device="meta")
+    ids = torch.zeros((4,), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        row_kernels.gather_rows(rows, ids)
+    with pytest.raises(ValueError):
+        row_kernels.scatter_add_rows_(rows, ids, torch.empty((4, 9), device="meta"))
+    for fn in (row_kernels.cand_score, row_kernels.cand_score_rows, row_kernels.cand_score_smem):
+        with pytest.raises(ValueError):
+            fn(torch.empty((4, 9), device="meta"), rows, torch.zeros((4, 5), dtype=torch.int64, device="meta"))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(os, "access", lambda *a, **k: False)
     with pytest.raises(_build.KernelCompileError):
         _build.find_nvcc()
 
 
-def test_sparse_updates_are_refused():
+def test_sparse_updates_auto_switch_builds_the_sparse_step():
     cfg = engine.EngineConfig(
         num_items=10, loss=Loss.BPR, optimizer=Optimizer.ADAM, learning_rate=0.1, l2_penalty=0.0
     )
     assert cfg.sparse_updates is True  # the JAX package's default
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        engine.make_train_step(cfg, lambda p, x, starts=None: x)
-    big = lstm.Hyperparameters(300_000, 4).embedding_dim(16).build("cpu")
+    assert callable(engine.make_train_step(cfg, lambda p, x, starts=None: x))
+    big = (lstm.Hyperparameters(300_000, 4).embedding_dim(16).learning_rate(0.1).num_epochs(2)
+           .from_seed(0).build("cpu"))
     assert big._engine_config().sparse_updates  # N * D > 2**22: the sparse path
     assert not lstm.Hyperparameters(3706, 4).embedding_dim(128).build("cpu")._engine_config().sparse_updates
+    # The large model fits with no argument beyond the JAX package's, and
+    # only touched rows move: the data's items and the drawn negatives.
+    table = big._params["item_table"].clone()
+    data = datasets.synthetic_interactions(20, 300_000, 8, rng=0).to_compressed()
+    assert np.isfinite(big.fit(data))
+    moved = set(torch.nonzero((big._params["item_table"] != table).any(dim=1))[:, 0].tolist())
+    assert set(data.item_ids.tolist()) <= moved
+    assert len(moved) <= 2 * len(data) * big.hyper._num_epochs
 
 
 def test_hyperparameters_round_trip_with_jax():
