@@ -13,9 +13,11 @@ LSTM serving, evaluation and training paths, one phase per printed line:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving and training paths, with the largest error beside the
    stated tolerance and the median time of each: the LSTM forward (K1), the
-   LSTM backward (K2) and its dW_h reduction, the score + group-max kernels
-   (K3/K4), the score + rank count kernel (K5: counts may differ only by
-   rows whose score lies within the tolerance of the target), and the
+   LSTM backward (K2) and its dW_h reduction (3xTF32 on the tensor cores: two
+   calls bit-equal, one device launch a call, device time beside torch.mm's;
+   zeros at T=1), the score + group-max kernels (K3/K4), the score + rank
+   count kernel (K5, 3xTF32: counts may differ only by rows whose score lies
+   within the tolerance of the target), and the
    training step's row kernels at the sparse step's shapes: the row gather
    (P1) and row read-modify-write (P2) on 33,024 sorted unique rows of a
    10,000,000 x 128 f32 and a 20,000,000 x 128 bf16 table (bit for bit,
@@ -70,9 +72,10 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    timed fit.
 
 It then prints the kernels' JSON line (each kernel's launches on the main
-paths, largest error, card and plain times, its bound on this card and the
-time of one PyTorch call that computes the same function, where there is
-one) and, last, the contract line
+paths, largest error, card and plain times, its bound on this card, by the
+route it takes: FP32 FMAs, or 3xTF32 with the FP32 bound beside as
+``bound_fp32_ms``, and the time of one PyTorch call that computes the same
+function, where there is one) and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 those lines. Without a CUDA device it exits non-zero at once.
 """
@@ -121,9 +124,13 @@ G_FLOOR = 1e-5
 # phase 7b checks updated values from this |g| up (gradients everywhere).
 G_FLOOR_SPARSE = 1e-4
 
-# (T, B, D, variants) of K2's checks: the ml1m fit, the bench.py fit, and an
-# odd D whose w_h (Normal) is beyond a block's shared memory.
-K2_SHAPES = [(128, 256, 128, (True, False)), (32, 256, 32, (False, True)), (32, 4096, 127, (False,))]
+# (T, B, D, variants) of K2's checks: the ml1m fit, the bench.py fit, an odd
+# D whose w_h (Normal) is beyond a block's shared memory, and the
+# fit-10M-sparse fit (T=64, D=127 Coupled: G*D = 381, not a multiple of 4).
+K2_SHAPES = [
+    (128, 256, 128, (True, False)), (32, 256, 32, (False, True)), (32, 4096, 127, (False,)),
+    (64, 256, 127, (True,)),
+]
 K2_TIMED = (128, 256, 128, True, True)  # the ml1m fit's call: Coupled, packed
 BENCH_REPEATS = 5  # continued bench.py-config fits timed, for their spread
 # Evaluation: the test sets of benches/large_scale.py at 10M items, the
@@ -148,9 +155,13 @@ FIT_USERS, FIT_ITEMS_PER_USER, FIT_T = 20_000, 50, 64
 # 1 - pos + cand lies this close to 0.
 TOL_MARGIN = 1e-4
 # Published peaks of one H100 SXM (dense): FP32 outside the tensor cores,
-# and HBM3. A kernel's bound is the larger of its FLOPs and its bytes (each
-# input read once, each output written once) over these.
+# TF32 on them, and HBM3. A kernel's bound is the larger of its FLOPs and its
+# bytes (each input read once, each output written once) over these; a
+# 3xTF32 kernel (K5, dW_h) does 3 TF32 products per FLOP of the function (2
+# for bf16 rows) and is bound by those on the TF32 peak, with its FP32 bound
+# printed beside.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -224,17 +235,33 @@ def main() -> None:
         as the kernel, and CUDA events around one call would time the host."""
         fn()
         torch.cuda.synchronize()
+        for _ in range(3):  # the profiler now and then returns an empty trace
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            busy_us = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            )
+            if busy_us > 0:
+                return busy_us / 1e3 / reps
+        raise SmokeFailure("torch.profiler saw no device time")
+
+    def kernels_per_call(fn, reps=5):
+        """Device kernels (and memsets/copies) that one call of ``fn`` runs,
+        counted by ``torch.profiler`` over ``reps`` calls after a warm-up."""
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(
-            e.self_device_time_total for e in prof.key_averages()
+        events = [
+            e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-        )
-        if busy_us <= 0:
-            raise SmokeFailure("torch.profiler saw no device time")
-        return busy_us / 1e3 / reps
+        ]
+        return sum(e.count for e in events) / reps, sorted({e.key[:60] for e in events})
 
     def compare(name, got, want, tol, quiet=False):
         if got.shape != want.shape:
@@ -256,9 +283,11 @@ def main() -> None:
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def record(name, err, ms=None, plain_ms=None, work=None, library_ms=None):
+    def record(name, err, ms=None, plain_ms=None, work=None, library_ms=None, tf32_products=None):
         """Keep the largest error; with ``ms``, the timed call's numbers and
-        its bound from ``work = (flops, bytes)`` at the same shape."""
+        its bound from ``work = (flops, bytes)`` at the same shape: FLOPs on
+        the FP32 peak, or, for a 3xTF32 kernel, ``tf32_products`` x FLOPs on
+        the TF32 peak (the FP32 bound then kept beside as ``bound_fp32_ms``)."""
         r = report.setdefault(name, {
             "max_abs_err": 0.0, "ms": None, "plain_ms": None,
             "bound_ms": None, "bound_by": None, "library_ms": None,
@@ -266,14 +295,20 @@ def main() -> None:
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if ms is not None:
             flops, moved = work
-            t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, moved / PEAK_HBM_BYTES * 1e3
+            t_fp32, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, moved / PEAK_HBM_BYTES * 1e3
+            t_ops = t_fp32 if tf32_products is None else tf32_products * flops / PEAK_TF32_FLOPS * 1e3
             r.update(
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
             )
+            route = "FP32" if tf32_products is None else f"{tf32_products}xTF32"
+            fp32 = ""
+            if tf32_products is not None:
+                r["bound_fp32_ms"] = max(t_fp32, t_bytes)
+                fp32 = f"; FP32 bound {r['bound_fp32_ms']:.3f} ms ({r['bound_fp32_ms'] / ms:.1%})"
             print(
-                f"  bound: {r['bound_ms']:.3f} ms ({r['bound_by']}: {flops:.3e} FLOP, {moved:.3e} B); "
-                f"kernel at {r['bound_ms'] / ms:.1%} of it", flush=True,
+                f"  bound: {r['bound_ms']:.3f} ms ({r['bound_by']}, {route}: {flops:.3e} FLOP, {moved:.3e} B); "
+                f"kernel at {r['bound_ms'] / ms:.1%} of it{fp32}", flush=True,
             )
 
     # -- phase 3: kernels against their plain versions ----------------------------
@@ -336,18 +371,25 @@ def main() -> None:
                 pdxz, pdwh = lk.lstm_bwd_plain(xz, w_h, h, c, g, keep, coupled)
                 err = compare(f"K2 dxz ({label})", dxz, pdxz, TOL_DXZ)
                 err_w = compare_rel(f"K2 dW_h ({label})", dwh, pdwh, TOL_DWH)
+                before = lk.lstm_bwd_dwh.launches
+                red, red_again = lk.lstm_bwd_dwh(h, keep, dxz), lk.lstm_bwd_dwh(h, keep, dxz)
+                if lk.lstm_bwd_dwh.launches - before != 2:
+                    raise SmokeFailure(f"dW_h ({label}): {lk.lstm_bwd_dwh.launches - before} launches for 2 calls")
+                if not torch.equal(red, red_again):
+                    raise SmokeFailure(f"dW_h ({label}): two calls differ")
                 err_w = max(err_w, compare_rel(
-                    "  dW_h reduction alone", lk.lstm_bwd_dwh(h, keep, dxz),
-                    lk.lstm_bwd_dwh_plain(h, keep, dxz), TOL_DWH,
+                    "  dW_h reduction alone (two calls bit-equal)", red, lk.lstm_bwd_dwh_plain(h, keep, dxz), TOL_DWH,
                 ))
                 ms = time_ms(lambda: lk.lstm_bwd(xz, w_h, h, c, g, keep, coupled))
                 plain_ms = time_ms(lambda: lk.lstm_bwd_plain(xz, w_h, h, c, g, keep, coupled))
-                red_ms = time_ms(lambda: lk.lstm_bwd_dwh(h, keep, dxz))
-                red_plain_ms = time_ms(lambda: lk.lstm_bwd_dwh_plain(h, keep, dxz))
+                # dW_h by device time: at tens of microseconds a CUDA-event
+                # time would include the host's launch cost from Python.
+                red_ms = device_ms(lambda: lk.lstm_bwd_dwh(h, keep, dxz))
+                red_plain_ms = device_ms(lambda: lk.lstm_bwd_dwh_plain(h, keep, dxz))
                 fwd_ms = time_ms(lambda: lk.lstm_fwd(xz, w_h, keep, coupled))
                 print(
-                    f"  time: K2 {ms:.3f} ms (plain {plain_ms:.3f}), of which dW_h reduction "
-                    f"{red_ms:.3f} ms (plain matmul {red_plain_ms:.3f}); K1 at this shape {fwd_ms:.3f} ms",
+                    f"  time: K2 {ms:.3f} ms (plain {plain_ms:.3f}), K1 at this shape {fwd_ms:.3f} ms; "
+                    f"dW_h reduction {red_ms:.4f} ms device time (plain {red_plain_ms:.4f})",
                     flush=True,
                 )
                 if (t_len, b, d, coupled, with_starts) != K2_TIMED:
@@ -361,11 +403,24 @@ def main() -> None:
                 ))
                 h_prev = (h[:-1] * keep[1:]).reshape(-1, d)
                 dz = dxz[1:].reshape(-1, gates * d)
-                mm_ms = time_ms(lambda: torch.mm(h_prev.T, dz))
-                print(f"  library: torch.mm of the dW_h product alone {mm_ms:.3f} ms", flush=True)
+                mm_ms = device_ms(lambda: torch.mm(h_prev.T, dz))
+                per_call, names = kernels_per_call(lambda: lk.lstm_bwd_dwh(h, keep, dxz))
+                print(
+                    f"  library: torch.mm of the dW_h product alone {mm_ms:.4f} ms device time; the kernel "
+                    f"{red_ms:.4f} ms is {mm_ms / red_ms:.2f}x as fast; {per_call:g} device launches per dW_h "
+                    f"call: {names}", flush=True,
+                )
+                if per_call != 1:
+                    raise SmokeFailure(f"dW_h: {per_call} device launches per call, not 1")
                 record("lstm_bwd_dwh", err_w, red_ms, red_plain_ms, work=(prod, nbytes(h, keep, dxz, dwh)),
-                       library_ms=mm_ms)
-    del xz, w_h, g, starts, keep, h, c, hp, cp, dxz, dwh, pdxz, pdwh, h_prev, dz
+                       library_ms=mm_ms, tf32_products=3)
+    # T = 1: no step has an h[t-1], so dW_h is zero.
+    h1 = torch.randn((1, 256, 128), device=dev, generator=gen)
+    zero = lk.lstm_bwd_dwh(h1, torch.ones((1, 256, 1), device=dev), torch.randn((1, 256, 384), device=dev))
+    if zero.shape != (128, 384) or bool(zero.any()):
+        raise SmokeFailure("dW_h at T=1 is not zeros")
+    print("  dW_h at T=1: zeros", flush=True)
+    del xz, w_h, g, starts, keep, h, c, hp, cp, dxz, dwh, pdxz, pdwh, h_prev, dz, red, red_again, h1, zero
     torch.cuda.empty_cache()
 
     def check_k3(label, rows, reps, lo, n, group, timed):
@@ -472,6 +527,17 @@ def main() -> None:
         "slab c=300001 lo=2000000 col_lo=1000 n=2250000", slab, reps, 2_000_000, 1000, 2_250_000, False
     ))
     del rows32, reps, slab
+    # Other widths take K5's other routes: plain loads where a row is not a
+    # whole number of 16-byte pieces (33, 301), and rows staged slice by
+    # slice where they do not fit shared memory for all user tiles (301, 512).
+    for cc, c, u in ((33, 50_001, 13), (301, 30_000, 300), (512, 20_000, 300)):
+        rows32 = torch.randn((c, cc), device=dev, generator=gen)
+        reps = (torch.randn((u, cc), device=dev, generator=gen) * cc**-0.5).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            label = f"{name} Cc={cc} c={c} U={u}"
+            record("score_count_ge", check_k5(label, rows32.to(dtype), reps, 5, 7, c - 1, False))
+    del rows32, reps
     torch.cuda.empty_cache()
 
     def check_equal(name, got, want):
@@ -808,7 +874,7 @@ def main() -> None:
         record("score_count_ge", 0.0, ms, plain_ms, work=(
             2.0 * N_ITEMS * len(users) * (DIM + 1),
             nbytes(table, reps_aug, targets, test_items) + len(users) * 8,  # counts and probe out
-        ))
+        ), tf32_products=3 if table.dtype == torch.float32 else 2)
         del reps, reps_aug, targets, test_items, test_in_prefix, counts, p_counts, near, diff
 
     # 64 users' ranks against the per-user predict loop.

@@ -23,7 +23,10 @@
 // shapes (B = 256) there are few batch rows to spread over 132 SMs, and each
 // step's latency (w_h reads from L2, two barriers) bounds it, not HBM: xz,
 // hidden, cell and g are read once, dxz written once. dW_h is a plain
-// reduction over T*B rows, 2 * D * G*D * T*B FLOP, small for the card.
+// reduction over T*B rows, 2 * D * G*D * T*B FLOP, small for the card: at
+// the ml1m shape (M = 32,512 rows, D = 128, G*D = 384) its 67 MB of
+// operands take 0.020 ms at 3.35 TB/s and its 3xTF32 products 0.019 ms at
+// 495 TFLOP/s, where FP32 FMAs alone would take 0.048 ms.
 //
 // Design:
 // * The TPU kernel carries dW_h in VMEM scratch across a sequential grid.
@@ -32,9 +35,27 @@
 //       itself, writing dxz (an output anyway). R is 2, 4 or 8, chosen from
 //       B so that even B = 256 gives 128 blocks;
 //   (b) the dW_h reduction, dW_h[k, c] = sum_m A[m, k] * dxz[m + B, c] with
-//       A[m] = hidden[m] * keep[m + B] over the m < (T-1)*B rows of t >= 1:
-//       64 x 64 output tiles through shared memory, split over row chunks
-//       into deterministic per-chunk partials that the wrapper sums.
+//       A[m] = hidden[m] * keep[m + B] over the m < (T-1)*B rows of t >= 1,
+//       on the tensor cores in 3xTF32 (tf32x3.cuh) with wgmma.m64n128k8:
+//       M = k, N = c, and the reduction K = m runs down the rows of both
+//       operands, an MN-major layout that TF32 wgmma does not take. So A
+//       (hidden x keep) is gathered into registers from rows staged
+//       [m][k] (stride 8 mod 32 floats: conflict-free) and split there, and
+//       dxz is transposed while staged: a 4-stage cp.async ring of 32-row
+//       stages (16-byte copies when D and G*D are multiples of 4, else
+//       4-byte ones) feeds a split + transpose into K-major hi/lo tiles for
+//       the next stage while this stage's wgmmas run. 64 x 128 output
+//       tiles; the two warpgroups of a block take two k-steps of each stage
+//       each and add their sums in a fixed order at the end. Each stage's
+//       wgmmas go to a fresh accumulator added to the running one in FP32:
+//       the tensor cores truncate as they accumulate, which over a split of
+//       thousands of rows drifted to 5e-5 of max|dW_h| (PERF.md).
+//       The rows split into about one wave of blocks over the SMs
+//       (lstm_kernels.dwh_geometry), each writing its partial tile; a
+//       __threadfence and a per-tile ticket follow, and the last block of a
+//       tile sums the partials in split order, so the result is the same
+//       bits run after run and takes one launch. The last block resets its
+//       ticket, so the wrapper's ticket buffer stays zero between calls.
 // * w_h does not fit in shared memory at the training widths (D = 128
 //   Normal: 262,144 B; D = 127 Normal: 258,064 B; the limit is 232,448 B),
 //   so it stays in global memory, L2-resident, as in the forward. Thread j
@@ -44,17 +65,36 @@
 // * Shared memory holds h_prev of the block's rows (broadcast reads in the
 //   recompute) and their dz (broadcast reads for dh); two barriers a step.
 // * hidden[t-1] and cell[t-1] are read only for t > 0, never index -1.
-// * No vector loads: D may be odd (rows of 127 floats are not 16-byte
-//   aligned). f32 throughout with expf/tanhf; sums over k in the forward's
-//   order, so the recomputed gates match the forward kernel's.
+// * The recurrence makes no vector loads: D may be odd (rows of 127 floats
+//   are not 16-byte aligned). f32 throughout with expf/tanhf; sums over k
+//   in the forward's order, so the recomputed gates match the forward
+//   kernel's.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // dW_h output tile, both dimensions
-constexpr int kTileM = 16;     // rows of the reduction per shared-memory stage
-constexpr int kDwhThreads = 256;
+constexpr int kDwhTileK = 64;    // dW_h rows (hidden units k) per block: wgmma's M
+constexpr int kDwhTileC = 128;   // dW_h columns (gate units c) per block: wgmma's N
+constexpr int kDwhRows = 32;     // reduction rows m per stage: 4 wgmma k-steps
+constexpr int kDwhThreads = 256;  // two warpgroups, two k-steps of each stage each
+constexpr int kDwhStages = 4;     // cp.async ring of hidden and dxz rows
+constexpr int kDwhAStride = kDwhTileK + 8;  // 72 floats: 8 mod 32, conflict-free
+constexpr int kDwhRawStride = kDwhTileC + 4;  // 132 floats: 16-byte rows
+constexpr int kDwhRingBytes = 4 * (kDwhRows * kDwhAStride + kDwhRows + kDwhRows * kDwhRawStride);
+// dxz rows, transposed while staged into wgmma's K-major layout (K = m):
+// core rows of 4 m of one column c, 8 columns SBO apart, 4-m chunks LBO
+// apart. LBO is 16 bytes past a multiple of 128, so the 32 lanes' stores of
+// one column (m = lane) fall in 32 banks.
+constexpr int kDwhSbo = 128;
+constexpr int kDwhLbo = kDwhTileC / 8 * kDwhSbo + 16;  // 2064
+constexpr int kDwhHalfB = kDwhRows / 4 * kDwhLbo;      // hi (or lo) of a stage
+constexpr int kDwhBBytes = 2 * kDwhHalfB;
+constexpr int kDwhSmem = kDwhStages * kDwhRingBytes + 2 * kDwhBBytes;
+constexpr int kDwhXStride = kDwhTileC + 4;  // the warpgroups' exchange tile
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -183,70 +223,228 @@ __global__ void lstm_bwd_recurrence_kernel(
   }
 }
 
-// partial[s, k, c] = sum over rows m of chunk s (m < M = (T-1)*B) of
-// hidden[m, k] * keep[m + B] * dxz[m + B, c]: row m + B is step t >= 1 and
-// row m is its h[t-1]. A 16 x 16 thread block computes one 64 x 64 tile,
-// each thread the 4 x 4 outputs (ty + 16 a, tx + 16 b), so the reads of a
-// shared row are broadcast (A) or consecutive (B): no bank conflicts.
-__global__ void __launch_bounds__(kDwhThreads) lstm_bwd_dwh_kernel(
+// dW_h[k, c] = sum over m < M = (T-1)*B of hidden[m, k] * keep[m + B] *
+// dxz[m + B, c]: row m + B is step t >= 1 and row m is its h[t-1]. Block
+// (x, y, z) computes the 64 x 128 tile (k0 = 64 y, c0 = 128 x) over the rows
+// [z * chunk, min(M, (z + 1) * chunk)). With one split it writes out; else it
+// writes partial[z] and the tile's last block to arrive sums the partials in
+// split order into out. In wgmma terms M = k, N = c and the reduction K = m:
+// A (k x m) is gathered into registers from the staged rows [m][k], keep
+// applied, and split; B (m x c) is dxz staged K-major, hi and lo.
+template <bool kVec>
+__global__ void __launch_bounds__(kDwhThreads, 1) lstm_bwd_dwh_kernel(
     const float* __restrict__ hidden, const float* __restrict__ keep,
-    const float* __restrict__ dxz, float* __restrict__ partial, int M, int B,
-    int D, int GD, int chunk) {
-  __shared__ float a_s[kTileM][kTile];  // [m][k]
-  __shared__ float b_s[kTileM][kTile];  // [m][c]
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int c0 = blockIdx.x * kTile;
-  const int k0 = blockIdx.y * kTile;
+    const float* __restrict__ dxz, float* __restrict__ partial,
+    unsigned int* __restrict__ tickets, float* __restrict__ out, int M, int B,
+    int D, int GD, int splits, int chunk) {
+  extern __shared__ __align__(128) unsigned char dwh_smem[];
+  __shared__ bool last_block;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int wg = warp / 4;   // this warpgroup's k-steps: 2 wg, 2 wg + 1
+  const int row = (warp % 4) * 16;  // this warp's 16 rows (k) of the tile
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int c0 = blockIdx.x * kDwhTileC;
+  const int k0 = blockIdx.y * kDwhTileK;
   const int m_begin = blockIdx.z * chunk;
   const int m_end = min(M, m_begin + chunk);
+  const int n_st = m_end > m_begin ? (m_end - m_begin + kDwhRows - 1) / kDwhRows : 0;
+  // Ring slot s: hidden rows [32][72], their keep [32], dxz rows [32][132].
+  auto a_slot = [&](int s) { return reinterpret_cast<float*>(dwh_smem + s * kDwhRingBytes); };
+  auto raw_slot = [&](int s) { return a_slot(s) + kDwhRows * kDwhAStride + kDwhRows; };
+  auto b_slot = [&](int s) { return dwh_smem + kDwhStages * kDwhRingBytes + s * kDwhBBytes; };
 
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-
-  for (int m0 = m_begin; m0 < m_end; m0 += kTileM) {
-    for (int e = threadIdx.x; e < kTileM * kTile; e += kDwhThreads) {
-      const int mm = e / kTile;
-      const int ii = e % kTile;
-      const int m = m0 + mm;
-      float av = 0.0f, bv = 0.0f;
-      if (m < m_end) {
-        if (k0 + ii < D)
-          av = hidden[static_cast<size_t>(m) * D + k0 + ii] * keep[m + B];
-        if (c0 + ii < GD) bv = dxz[static_cast<size_t>(m + B) * GD + c0 + ii];
+  // Stage st's hidden rows [m0, m0 + 32) x k [k0, k0 + 64), their keep and
+  // dxz rows x c [c0, c0 + 128) into ring slot s, by cp.async.
+  auto load = [&](int s, int st) {
+    float* as = a_slot(s);
+    float* ks = as + kDwhRows * kDwhAStride;
+    float* raw = raw_slot(s);
+    const int m0 = m_begin + st * kDwhRows;
+    if constexpr (kVec) {
+      for (int e = tid; e < kDwhRows * (kDwhTileK / 4); e += kDwhThreads) {
+        const int r = e / (kDwhTileK / 4);
+        const int q = (e % (kDwhTileK / 4)) * 4;
+        const bool ok = m0 + r < m_end && k0 + q < D;
+        tf32x3::cp_async16(as + r * kDwhAStride + q,
+                           ok ? hidden + static_cast<size_t>(m0 + r) * D + k0 + q : hidden, ok);
       }
-      a_s[mm][ii] = av;
-      b_s[mm][ii] = bv;
+      for (int e = tid; e < kDwhRows * (kDwhTileC / 4); e += kDwhThreads) {
+        const int r = e / (kDwhTileC / 4);
+        const int q = (e % (kDwhTileC / 4)) * 4;
+        const bool ok = m0 + r < m_end && c0 + q < GD;
+        tf32x3::cp_async16(raw + r * kDwhRawStride + q,
+                           ok ? dxz + static_cast<size_t>(m0 + r + B) * GD + c0 + q : dxz, ok);
+      }
+    } else {
+      for (int e = tid; e < kDwhRows * kDwhTileK; e += kDwhThreads) {
+        const int r = e / kDwhTileK;
+        const int q = e % kDwhTileK;
+        const bool ok = m0 + r < m_end && k0 + q < D;
+        tf32x3::cp_async4(as + r * kDwhAStride + q,
+                          ok ? hidden + static_cast<size_t>(m0 + r) * D + k0 + q : hidden, ok);
+      }
+      for (int e = tid; e < kDwhRows * kDwhTileC; e += kDwhThreads) {
+        const int r = e / kDwhTileC;
+        const int q = e % kDwhTileC;
+        const bool ok = m0 + r < m_end && c0 + q < GD;
+        tf32x3::cp_async4(raw + r * kDwhRawStride + q,
+                          ok ? dxz + static_cast<size_t>(m0 + r + B) * GD + c0 + q : dxz, ok);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < kTileM; ++mm) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = a_s[mm][ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = b_s[mm][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+    if (tid < kDwhRows) {
+      const bool ok = m0 + tid < m_end;
+      tf32x3::cp_async4(ks + tid, ok ? keep + m0 + tid + B : keep, ok);
     }
-    __syncthreads();
+  };
+
+  // The dxz rows of ring slot s, split and transposed into B slot b: thread
+  // (m = tid % 32, columns 16 (tid / 32) .. + 15); its 16-byte reads of one
+  // row (stride 132 words) and its stores are conflict-free.
+  auto transpose_b = [&](int s, int b) {
+    const int bm = tid % 32;
+    const int bc = (tid / 32) * 16;
+    const float4* src = reinterpret_cast<const float4*>(raw_slot(s) + bm * kDwhRawStride + bc);
+    unsigned char* bs = b_slot(b) + (bm / 4) * kDwhLbo + (bm % 4) * 4;
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) {
+      const float4 x = src[q4];
+      const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = bc + 4 * q4 + i;
+        uint32_t hi, lo;
+        tf32x3::split(v[i], hi, lo);
+        unsigned char* at = bs + (c / 8) * kDwhSbo + (c % 8) * 16;
+        *reinterpret_cast<uint32_t*>(at) = hi;
+        *reinterpret_cast<uint32_t*>(at + kDwhHalfB) = lo;
+      }
+    }
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  for (int s = 0; s < kDwhStages - 1; ++s) {
+    if (s < n_st) load(s, s);
+    tf32x3::cp_async_commit();
+  }
+  tf32x3::cp_async_wait<kDwhStages - 2>();
+  __syncthreads();
+  transpose_b(0, 0);
+  for (int st = 0; st < n_st; ++st) {
+    // Groups 0 .. st + 1 complete: stage st's hidden rows and stage st + 1's
+    // dxz rows are here.
+    tf32x3::cp_async_wait<kDwhStages - 3>();
+    // This thread's B stores (generic proxy) must be visible to wgmma.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // ring slot (st - 1) % 4 and B slot (st + 1) % 2 are free
+    if (st + kDwhStages - 1 < n_st) load((st + kDwhStages - 1) % kDwhStages, st + kDwhStages - 1);
+    tf32x3::cp_async_commit();
+
+    const float* as = a_slot(st % kDwhStages);
+    const float* ks = as + kDwhRows * kDwhAStride;
+    const unsigned char* bs = b_slot(st % 2);
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mb = (2 * wg + i) * 8;
+      const float keep0 = ks[mb + t];
+      const float keep1 = ks[mb + t + 4];
+      const float x[4] = {
+          as[(mb + t) * kDwhAStride + row + g] * keep0,
+          as[(mb + t) * kDwhAStride + row + g + 8] * keep0,
+          as[(mb + t + 4) * kDwhAStride + row + g] * keep1,
+          as[(mb + t + 4) * kDwhAStride + row + g + 8] * keep1,
+      };
+#pragma unroll
+      for (int q = 0; q < 4; ++q) tf32x3::split(x[q], ah[i][q], al[i][q]);
+    }
+    // The stage's products go to a fresh accumulator (the first MMA
+    // overwrites it), added to the running one with FP32 adds: the tensor
+    // cores' accumulation truncates, and over a whole split that drifts.
+    tf32x3::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mb = (2 * wg + i) * 8;
+      const uint64_t d_hi = tf32x3::smem_desc(bs + (mb / 4) * kDwhLbo, kDwhLbo, kDwhSbo);
+      const uint64_t d_lo = tf32x3::smem_desc(bs + kDwhHalfB + (mb / 4) * kDwhLbo, kDwhLbo, kDwhSbo);
+      tf32x3::wgmma_m64n128k8(part, al[i], d_hi, i > 0);
+      tf32x3::wgmma_m64n128k8(part, ah[i], d_lo);
+      tf32x3::wgmma_m64n128k8(part, ah[i], d_hi);
+    }
+    tf32x3::wgmma_commit();
+    if (st + 1 < n_st) transpose_b((st + 1) % kDwhStages, (st + 1) % 2);  // under the MMAs
+    tf32x3::wgmma_wait_all();
+    tf32x3::keep_in_registers(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
   }
 
-  float* out = partial + static_cast<size_t>(blockIdx.z) * D * GD;
+  // Warpgroup 1's sum goes through shared memory to warpgroup 0, which
+  // adds it to its own: a fixed order.
+  __syncthreads();  // every stage's shared memory is read
+  float* xs = reinterpret_cast<float*>(dwh_smem);  // [64][kDwhXStride]
+  if (wg == 1) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int k = k0 + ty + 16 * a;
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = c0 + tx + 16 * b;
-      if (k < D && c < GD) out[static_cast<size_t>(k) * GD + c] = acc[a][b];
-    }
+      for (int q = 0; q < 4; ++q)
+        xs[(row + g + 8 * (q / 2)) * kDwhXStride + 8 * j + 2 * t + q % 2] = acc[4 * j + q];
   }
+  __syncthreads();
+  if (wg == 0) {
+    float* dst = splits == 1 ? out : partial + static_cast<size_t>(blockIdx.z) * D * GD;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int kr = row + g + 8 * (q / 2);
+        const int cn = 8 * j + 2 * t + q % 2;
+        if (k0 + kr < D && c0 + cn < GD)
+          dst[static_cast<size_t>(k0 + kr) * GD + c0 + cn] = acc[4 * j + q] + xs[kr * kDwhXStride + cn];
+      }
+  }
+  if (splits == 1) return;
+
+  // The tile's last block sums every split's partial, in split order.
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0) last_block = atomicAdd(tickets + tile, 1u) == static_cast<unsigned int>(splits - 1);
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  // Each thread owns 32 of the tile's elements (a column strip, so the loads
+  // coalesce) and keeps all 32 loads of one split in flight.
+  constexpr int kPer = kDwhTileK * kDwhTileC / kDwhThreads;
+  float sum[kPer];
+  unsigned int at[kPer];  // offsets inside one [D, GD] slab: D * GD < 2^31
+  bool in[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int k = k0 + (tid + i * kDwhThreads) / kDwhTileC;
+    const int c = c0 + (tid + i * kDwhThreads) % kDwhTileC;
+    in[i] = k < D && c < GD;
+    at[i] = in[i] ? static_cast<unsigned int>(k * GD + c) : 0u;
+    sum[i] = 0.0f;
+  }
+  const size_t slab = static_cast<size_t>(D) * GD;
+#pragma unroll 2
+  for (int s = 0; s < splits; ++s) {
+    float w[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) w[i] = __ldcg(partial + s * slab + at[i]);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) sum[i] += w[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (in[i]) out[at[i]] = sum[i];
+  if (tid == 0) tickets[tile] = 0u;  // ready for the next call
 }
 
 template <int G, int R>
@@ -307,18 +505,29 @@ extern "C" int sbr_lstm_bwd_f32(const float* xz, const float* w_h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dW_h reduction: hidden [T, B, D], keep [T, B], dxz [T, B, GD] ->
-// partial [splits, D, GD], chunk rows of the M = (T-1)*B rows per split
-// (splits * chunk >= M; a split past M writes zeros).
+// The dW_h reduction: hidden [T, B, D], keep [T, B], dxz [T, B, GD] -> out
+// [D, GD], chunk rows of the M = (T-1)*B rows per split (a multiple of 32;
+// splits * chunk >= M). With splits > 1: partial [splits, D, GD] scratch and
+// tickets [ceil(D/64) * ceil(GD/128)] zeros, left zero again on return.
+// All f32 (tickets uint32), contiguous, on the current device.
 extern "C" int sbr_lstm_bwd_dwh_f32(const float* hidden, const float* keep,
-                                    const float* dxz, float* partial, int T,
+                                    const float* dxz, float* partial,
+                                    unsigned int* tickets, float* out, int T,
                                     int B, int D, int GD, int splits,
                                     int chunk, cudaStream_t stream) {
   if (B > 0 && D > 0 && GD > 0 && splits > 0) {
     const int M = T > 1 ? (T - 1) * B : 0;
-    const dim3 grid((GD + kTile - 1) / kTile, (D + kTile - 1) / kTile, splits);
-    lstm_bwd_dwh_kernel<<<grid, kDwhThreads, 0, stream>>>(
-        hidden, keep, dxz, partial, M, B, D, GD, chunk);
+    const dim3 grid((GD + kDwhTileC - 1) / kDwhTileC, (D + kDwhTileK - 1) / kDwhTileK, splits);
+    const size_t smem = kDwhSmem;
+    const bool vec = D % 4 == 0 && GD % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(hidden) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(dxz) % 16 == 0;
+    const auto kernel = vec ? lstm_bwd_dwh_kernel<true> : lstm_bwd_dwh_kernel<false>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kDwhThreads, smem, stream>>>(hidden, keep, dxz, partial, tickets, out, M, B,
+                                                D, GD, splits, chunk);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,145 @@
+// 3xTF32 on Hopper's tensor cores: FP32-grade products from TF32 inputs,
+// shared by score_count.cu (K5) and lstm_bwd.cu (the dW_h reduction).
+//
+// The split. A float a becomes a_hi + a_lo with
+//   a_hi = tf32(a),  a_lo = tf32(a - a_hi)
+// where tf32() is cvt.rna.tf32.f32 (round to nearest, ties away from zero,
+// to 10 mantissa bits; a - a_hi is exact in f32). A product then takes three
+// TF32 MMAs accumulated in FP32:
+//   a * b ~ a_lo * b_hi + a_hi * b_lo + a_hi * b_hi
+// the two small cross products first within each k-step, the usual order
+// for accuracy. A bf16 value has 8 mantissa bits, so it is exact in TF32:
+// its a_lo is 0 and its products need two MMAs, not three.
+//
+// The bound. With |a - a_hi| <= 2^-11 |a| and |a - a_hi - a_lo| <= 2^-22 |a|
+// (likewise for b), the dropped part of each product is
+// a_lo b_lo + (a_hi + a_lo) e_b + e_a (b_hi + b_lo) + e_a e_b, so for a
+// dot product of K terms
+//   | sum_k a_k b_k - sum_k (a_lo b_hi + a_hi b_lo + a_hi b_hi)_k |
+//       <= 3 * 2^-22 * (1 + 2^-10) * sum_k |a_k| |b_k|          (f32 a)
+//       <=     2^-22 * (1 + 2^-10) * sum_k |a_k| |b_k|          (bf16 a)
+// tests/test_torch_tf32x3.py checks it on seeded inputs at the kernels'
+// shapes, with cvt.rna emulated in numpy. On top of it comes the rounding
+// of the accumulation, and the tensor cores round worse than FP32 FMAs:
+// they truncate as they add, so an accumulator fed by many MMAs drifts.
+// K5 keeps one accumulator over its 128-deep sums (its scores' distance from
+// FP32's is in PERF.md); dW_h, summing thousands of rows, gives each stage's
+// MMAs a fresh accumulator and adds it to the running sum in FP32.
+//
+// Fragment layouts (g = lane / 4, t = lane % 4). For the m64nNk8 TF32
+// wgmma with A in registers, warp w of the warpgroup holds A's rows
+// 16 w .. 16 w + 15 as
+//   a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// and the accumulator's rows 16 w + g (+ 8), columns 8 j + 2 t (+ 1) at
+// d[4 j + {0, 1}] (row g) and d[4 j + {2, 3}] (row g + 8).
+#pragma once
+
+#include <stdint.h>
+
+namespace tf32x3 {
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x -> (hi, lo) as TF32 bit patterns.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// cp.async of 16 bytes (cache in L2 only) or 4 bytes; src_bytes = 0 writes
+// zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Warpgroup MMA (wgmma), TF32 in, FP32 accumulate, for Hopper (sm_90a).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A shared-memory matrix descriptor for wgmma without swizzle: the start
+// address, LBO (bytes between core matrices along K) and SBO (bytes between
+// core matrices along M or N), all in 16-byte units. A core matrix is 8
+// rows of 16 contiguous bytes (4 TF32 values along K).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+// d[64] += A (64 x 8, TF32 from registers) * B (8 x 128, TF32 from shared
+// memory), for the calling warpgroup, in the layouts above; with
+// accumulate = false the product overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b_desc, bool accumulate = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate ? 1 : 0));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void keep_in_registers(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+}  // namespace tf32x3

@@ -5,8 +5,9 @@ plain C interface, on the first CUDA use: one ``nvcc`` per source, all
 started together, then one link, so the build takes about as long as its
 slowest file. The library lands in
 ``build/sbr_rs_tpu_torch/`` at the root of the checkout, named by a hash of
-the sources and the flags, so an edited kernel rebuilds and an unchanged one
-loads at once. Every C entry point returns ``cudaGetLastError()`` after its
+the sources, the headers they include (``csrc/*.cuh``) and the flags
+(:func:`source_digest`), so an edited kernel or header rebuilds and an
+unchanged tree loads at once. Every C entry point returns ``cudaGetLastError()`` after its
 launch; :func:`check` turns a non-zero code into an exception.
 
 There is no fallback: without ``nvcc``, or when the build fails, the call
@@ -57,15 +58,22 @@ def find_nvcc() -> str:
     )
 
 
-def build_library() -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library, or reuse the one
-    a previous call built from the same sources and flags. Returns its path."""
-    sources = sorted(CSRC.glob("*.cu"))
+def source_digest(csrc: Path = CSRC) -> str:
+    """A hash of the flags and of every ``*.cu`` and ``*.cuh`` file in
+    ``csrc`` (names and contents), which names the built library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out = BUILD_DIR / f"libsbr_kernels_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile every ``csrc/*.cu`` into one shared library, or reuse the one
+    a previous call built from the same sources, headers and flags. Returns
+    its path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    out = BUILD_DIR / f"libsbr_kernels_{source_digest()}.so"
     if out.exists():
         return out
     nvcc = find_nvcc()

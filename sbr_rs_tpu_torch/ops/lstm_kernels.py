@@ -224,15 +224,45 @@ def lstm_bwd_dwh_plain(hidden: torch.Tensor, keep: torch.Tensor, dxz: torch.Tens
     return h_prev.T @ dxz[1:].reshape(-1, gd)
 
 
-_DWH_TILE = 64  # the kernel's output tile
+_DWH_TILE_K, _DWH_TILE_C = 64, 128  # the kernel's output tile, [D] x [G*D]
+_DWH_ROWS = 32  # the kernel's rows per stage: a split's rows are a multiple
 _DWH_MIN_ROWS = 256  # fewest reduction rows worth a split of their own
+
+
+def dwh_geometry(m: int, d: int, gd: int, slots: int) -> Tuple[int, int, int, int]:
+    """``(splits, chunk, tiles_k, tiles_c)`` of the dW_h kernel for ``m``
+    reduction rows and a ``[d, gd]`` result with ``slots`` blocks resident
+    at once: ``tiles_k x tiles_c`` output tiles of 64 x 128, and the rows
+    cut into ``splits`` chunks of ``chunk`` rows (a multiple of 32; the last
+    may be short, none is empty), so that one wave of blocks fills as many
+    slots as it can: a second, partial wave would double the time."""
+    tiles_k, tiles_c = -(-d // _DWH_TILE_K), -(-gd // _DWH_TILE_C)
+    splits = max(1, min(slots // (tiles_k * tiles_c), m // _DWH_MIN_ROWS))
+    chunk = -(-max(m, 1) // splits)
+    chunk = -(-chunk // _DWH_ROWS) * _DWH_ROWS
+    return max(1, -(-m // chunk)), chunk, tiles_k, tiles_c
+
+
+def _dwh_tickets(device: torch.device, tiles: int) -> torch.Tensor:
+    """The dW_h kernel's per-tile tickets on ``device``: zeros, which every
+    launch leaves zero again (the last block of a tile resets its own). Kept
+    across calls so that a call launches the kernel and nothing else."""
+    have = _dwh_tickets.cache.get(device)
+    if have is None or have.numel() < tiles:
+        have = torch.zeros((max(tiles, 64),), dtype=torch.int32, device=device)
+        _dwh_tickets.cache[device] = have
+    return have
+
+
+_dwh_tickets.cache = {}
 
 
 def lstm_bwd_dwh(hidden: torch.Tensor, keep: torch.Tensor, dxz: torch.Tensor) -> torch.Tensor:
     """:func:`lstm_bwd_dwh_plain` as the CUDA reduction kernel for CUDA
-    tensors: per-chunk partials over the ``(T-1)*B`` rows, about four
-    blocks per SM in all, summed here. ``lstm_bwd_dwh.launches`` counts its
-    launches."""
+    tensors: 3xTF32 on the tensor cores, split over the ``(T-1)*B`` rows
+    (:func:`dwh_geometry`), the partials summed in split order by the last
+    block of each tile in the same launch. ``lstm_bwd_dwh.launches`` counts
+    its launches."""
     if hidden.device.type == "cpu":
         return lstm_bwd_dwh_plain(hidden, keep, dxz)
     if hidden.device.type != "cuda":
@@ -243,25 +273,25 @@ def lstm_bwd_dwh(hidden: torch.Tensor, keep: torch.Tensor, dxz: torch.Tensor) ->
     _require(keep, "keep", (t_len, b, 1), torch.float32, hidden.device)
     _require(dxz, "dxz", (t_len, b, gd), torch.float32, hidden.device)
     m = max(t_len - 1, 0) * b
-    tiles = -(-gd // _DWH_TILE) * -(-d // _DWH_TILE)
+    if m >= 2**31 or d * gd >= 2**31:
+        raise ValueError(f"lstm_bwd_dwh takes fewer than 2^31 rows and D x G*D elements, got {m}, {d} x {gd}")
     sms = torch.cuda.get_device_properties(hidden.device).multi_processor_count
-    splits = max(1, min(-(-4 * sms // tiles), -(-m // _DWH_MIN_ROWS)))
-    chunk = -(-max(m, 1) // splits)
-    chunk = -(-chunk // 16) * 16
-    splits = max(1, -(-m // chunk))
-    partial = torch.empty((splits, d, gd), dtype=torch.float32, device=hidden.device)
+    splits, chunk, tiles_k, tiles_c = dwh_geometry(m, d, gd, sms)  # one block an SM
+    out = torch.empty((d, gd), dtype=torch.float32, device=hidden.device)
+    partial = out if splits == 1 else torch.empty((splits, d, gd), dtype=torch.float32, device=hidden.device)
+    tickets = _dwh_tickets(hidden.device, tiles_k * tiles_c)
     fn = _build.library().sbr_lstm_bwd_dwh_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(hidden.device):
         stream = torch.cuda.current_stream(hidden.device).cuda_stream
         status = fn(
             hidden.data_ptr(), keep.data_ptr(), dxz.data_ptr(), partial.data_ptr(),
-            t_len, b, d, gd, splits, chunk, stream,
+            tickets.data_ptr(), out.data_ptr(), t_len, b, d, gd, splits, chunk, stream,
         )
     _build.check(status, "lstm_bwd_dwh")
     lstm_bwd_dwh.launches += 1
-    return partial[0] if splits == 1 else partial.sum(dim=0)
+    return out
 
 
 lstm_bwd_dwh.launches = 0

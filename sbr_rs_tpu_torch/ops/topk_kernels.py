@@ -26,8 +26,10 @@ Evaluation (the fused rank counter of ``evaluation.py``):
 For CUDA tensors the wrappers launch the kernels and raise on input they
 do not take; for CPU tensors, and only for those, they run the plain
 versions (:func:`score_groupmax_plain`, :func:`score_submax_groupmax_plain`,
-:func:`score_count_ge_plain`). Products are full f32 on both routes: no
-TF32, no tensor cores.
+:func:`score_count_ge_plain`). The group-max kernels multiply in FP32 FMAs;
+the rank count multiplies on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``:
+each f32 operand split into two TF32 parts, three products per term), whose
+scores stay within a few 1e-6 of FP32's. The plain versions are FP32.
 """
 
 from __future__ import annotations
@@ -237,9 +239,11 @@ def score_count_ge(
     n: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`score_count_ge_plain` fused: ``csrc/score_count.cu`` for CUDA
-    tensors. ``chunk_rows`` may be the whole catalog (``lo = col_lo = 0``)
-    or any slab of it; any ``U`` works. ``C = 0`` returns zeros without a
-    launch. ``score_count_ge.launches`` counts the kernel's launches."""
+    tensors (3xTF32 on the tensor cores; a pre-pass in the same call splits
+    ``reps_aug`` into a scratch buffer). ``chunk_rows`` may be the whole
+    catalog (``lo = col_lo = 0``) or any slab of it; any ``U`` works.
+    ``C = 0`` returns zeros without a launch. ``score_count_ge.launches``
+    counts the calls that launch the kernel."""
     c, cc = chunk_rows.shape
     u = reps_aug.shape[0]
     if not count_supported(c, cc, u):
@@ -271,7 +275,11 @@ def score_count_ge(
         raise ValueError("score_count_ge: rows must be contiguous")
     counts = torch.zeros((u,), dtype=torch.int32, device=dev)
     probe_scores = torch.empty((u,), dtype=torch.float32, device=dev)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
+    lib = _build.library()
+    lib.sbr_score_count_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sbr_score_count_scratch_floats.restype = ctypes.c_longlong
+    scratch = torch.empty((lib.sbr_score_count_scratch_floats(u, cc),), dtype=torch.float32, device=dev)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ]
@@ -279,7 +287,7 @@ def score_count_ge(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(
-            chunk_rows.data_ptr(), reps_aug.data_ptr(), targets.data_ptr(),
+            chunk_rows.data_ptr(), reps_aug.data_ptr(), scratch.data_ptr(), targets.data_ptr(),
             probe_local.data_ptr(), counts.data_ptr(), probe_scores.data_ptr(),
             c, cc, u, int(lo), int(col_lo), int(n), stream,
         )

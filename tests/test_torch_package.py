@@ -210,3 +210,23 @@ def test_load_numpy_params_and_clone():
     tree["tower"]["w_h"] = tree["tower"]["w_h"][:, :-1]
     with pytest.raises(ValueError):
         model.load_numpy_params(tree)
+
+
+def test_source_digest_covers_headers(tmp_path):
+    """The built library is named by a digest of the kernel sources and the
+    headers they include: editing a ``.cuh`` must rebuild, and an unchanged
+    tree must load the library it built before."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
+        (csrc / src.name).write_bytes(src.read_bytes())
+    assert (csrc / "tf32x3.cuh").exists()
+    first = _build.source_digest(csrc)
+    assert _build.source_digest(csrc) == first
+    assert _build.source_digest(_build.CSRC) == first  # names and contents only
+    header = csrc / "tf32x3.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = _build.source_digest(csrc)
+    assert edited != first
+    (csrc / "score_count.cu").write_text((csrc / "score_count.cu").read_text() + "\n")
+    assert _build.source_digest(csrc) not in (first, edited)
