@@ -15,7 +15,11 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    stated tolerance and the median time of each: the LSTM forward (K1), the
    LSTM backward (K2) and its dW_h reduction (3xTF32 on the tensor cores: two
    calls bit-equal, one device launch a call, device time beside torch.mm's;
-   zeros at T=1), the score + group-max kernels (K3/K4), the score + rank
+   zeros at T=1), the score + group-max kernels (K3 and the FP32 K4), the
+   3xTF32 K4 (each maximum within the certificate's eps of the plain one and
+   within TOL_SCORE per 128 terms, f32 and bf16 rows, cc = 33, 128, 301 and
+   512, ragged slabs; and its error on all-positive rows and reps, where no
+   cancellation hides it, against the stated bound), the score + rank
    count kernel (K5, 3xTF32: counts may differ only by rows whose score lies
    within the tolerance of the target), and the
    training step's row kernels at the sparse step's shapes: the row gather
@@ -25,11 +29,20 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    with the table in shared memory (P3, fit-bench's 1682 x 33 table) and
    read from device memory (P4, the probe's 1688 x 128 table and the
    10M/20M tables at 16,384 positions x 5), within 1e-5 relative;
-4. ``recommend_batch(k=10)`` for 4096 users over a 10,000,000-item LSTM-127
-   catalog (single-pass merge, launches the LSTM and score+submax+groupmax
-   kernels), in users/s, checked against a plain full-catalog reference;
+4. the 3xTF32 K4 at the serving shape (10M x 4096) against its plain version
+   and timed beside the FP32 K4 on the same inputs; then ``recommend_batch(
+   k=10)`` for 4096 users over a 10,000,000-item LSTM-127 catalog
+   (single-pass merge: the LSTM kernel, the 3xTF32 K4 and the certificate),
+   in users/s, with the users the certificate sent back to the FP32 K4,
+   checked against a plain full-catalog reference on 256 users, and one
+   batch served with the caller's ``allow_tf32`` True (the same ids, the
+   flag left True);
 5. the running-merge path (1,000,000 items, 512 users, merge budget 0), which
    launches the score+groupmax kernel chunk by chunk, checked the same way;
+5b. a 1,000,000-item catalog of 64 copies of 15,625 items (every copy keeps
+   its item's row): every user's top-10 ties with its certificate's
+   threshold, so each one is rescored through the FP32 K4; checked the same
+   way;
 6. one more 10M batch under ``torch.profiler`` (after the timed runs): the
    device's busy time, its idle share and the kernels that took the time;
 6b. ``evaluation.mrr_score`` on the same 10M-item model for 512 and 4096
@@ -51,8 +64,10 @@ LSTM serving, evaluation and training paths, one phase per printed line:
 8. ``fit`` at full width, the ``ml1m`` configuration of
    ``benches/large_scale.py``: ML-1M-shaped synthetic data (6040 users x
    3706 items x 165), Coupled LSTM-128, T=128, Hinge, Adam, packed, batch
-   256, one epoch; a warm-up fit, a timed fit in examples/s, and one more
-   fit under ``torch.profiler``;
+   256, one epoch; a warm-up fit, a timed fit in examples/s, one more fit
+   under ``torch.profiler``, and two fresh fits from one seed whose tables
+   and towers must be equal bit for bit (the dense table step sums in a
+   fixed order);
 9. ``fit`` on the ``bench.py`` configuration over ML-100K-shaped synthetic
    data (943 x 1682 x 106, user split 0.2): Normal LSTM-32, T=32, WARP,
    Adagrad, packed, batch 256, 10 epochs, in examples/s (a fresh fit, then
@@ -102,10 +117,15 @@ SEQ_LEN = 32
 DIM = 127
 SERVE_CHUNK = 131072
 K = 10
-REF_USERS = 32
+REF_USERS = 256
+# Phase 5b: a catalog of REPEATS copies of N_ITEMS_MERGE / REPEATS items.
+REPEATS = 64
 
 TOL_LSTM = 1e-5   # f32; the 127-term sums run in another order, |h| < 1
 TOL_SCORE = 2e-5  # f32 dot of 128 terms in another order, scores of order 1
+# The 3xTF32 K4 against FP32: within the certificate's eps (a bound), and
+# within TOL_SCORE per 128 terms (cc / 128 times it for wider rows: both
+# formulations' rounding grows with the terms).
 TOL_REL = 1e-5    # top-k scores against the plain reference, relative
 TOL_DXZ = 1e-5    # K2 dxz: f32 sums of D (and G*D) terms in another order
 TOL_DWH = 1e-4    # K2 dW_h relative to max|dW_h|: T*B products in another order
@@ -179,6 +199,7 @@ def main() -> None:
     from sbr_rs_tpu_torch import data as sbr_data
     from sbr_rs_tpu_torch import datasets, evaluation
     from sbr_rs_tpu_torch.models import Loss, Optimizer, engine, lstm
+    from sbr_rs_tpu_torch.models.base import topk_streamed
     from sbr_rs_tpu_torch.models.towers import lstm_apply
     from sbr_rs_tpu_torch.ops import _build
     from sbr_rs_tpu_torch.ops import lstm_kernels as lk
@@ -187,8 +208,8 @@ def main() -> None:
     from sbr_rs_tpu_torch.ops.sampling import warp_select
 
     dev = torch.device("cuda", 0)
-    # Full f32 for every plain matmul here: the references must not round
-    # through TF32.
+    # Full f32 for every plain matmul here (the references must not round
+    # through TF32), except where phase 4 serves with the caller's flag on.
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # -- phase 1: the card ------------------------------------------------------
@@ -434,20 +455,47 @@ def main() -> None:
             return err, ms, plain_ms
         return err, None, None
 
+    def tol_score(cc):
+        return TOL_SCORE * max(1.0, cc / 128)
+
+    def within_eps(name, got, want, eps):
+        """|got - want| <= eps[u] wherever both are finite (the -inf
+        positions are compared by ``compare``); returns the largest ratio."""
+        both = torch.isfinite(got) & torch.isfinite(want)
+        ratio = float(torch.where(both, (got - want).abs() / eps, torch.zeros_like(got)).max())
+        if not ratio <= 1.0:
+            raise SmokeFailure(f"{name}: an error {ratio:.3f} x the certificate's eps")
+        return ratio
+
     def check_k4(label, rows, reps, lo, n, sub, group, timed):
-        smax, gmax = tk.score_submax_groupmax(rows, reps, lo, n, sub, group)
+        """Both K4 routes against the plain version: the FP32 kernel within
+        TOL_SCORE, the 3xTF32 kernel within the certificate's eps of each
+        user (phase1_error_bound) and within tol_score(cc). Returns
+        ``{name: max_abs_err}``."""
         ps, pg = tk.score_submax_groupmax_plain(rows, reps, lo, n, sub, group)
-        err = max(
-            compare(f"K4 {label} submax", smax, tk._pad_to(ps, smax.shape[0]), TOL_SCORE),
-            compare(f"K4 {label} groupmax", gmax, tk._pad_to(pg, gmax.shape[0]), TOL_SCORE),
-        )
+        eps = tk.phase1_error_bound(rows, reps)
+        tol = tol_score(rows.shape[1])
+        errs = {}
+        for name, fn in (("score_submax_groupmax_fp32", tk.score_submax_groupmax_fp32),
+                         ("score_submax_groupmax", tk.score_submax_groupmax)):
+            tc = name == "score_submax_groupmax"
+            smax, gmax = fn(rows, reps, lo, n, sub, group)
+            err, ratio = 0.0, 0.0
+            for part, got, want in (("submax", smax, ps), ("groupmax", gmax, pg)):
+                want = tk._pad_to(want, got.shape[0])
+                err = max(err, compare(f"K4 {'3xTF32' if tc else 'FP32'} {label} {part}", got, want,
+                                       tol if tc else TOL_SCORE, quiet=True))
+                if tc:
+                    ratio = max(ratio, within_eps(f"K4 3xTF32 {label} {part}", got, want, eps))
+            print(f"  K4 {'3xTF32' if tc else 'FP32'} {label}: max_abs_err {err:.3e} (tol "
+                  f"{tol if tc else TOL_SCORE:.0e})" + (f", at most {ratio:.4f} x eps" if tc else ""), flush=True)
+            errs[name] = err
         if timed:
-            ms = time_ms(lambda: tk.score_submax_groupmax(rows, reps, lo, n, sub, group))
-            plain_ms = time_ms(
-                lambda: tk.score_submax_groupmax_plain(rows, reps, lo, n, sub, group)
-            )
-            print(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-        return err
+            ms = {name: time_ms(lambda: fn(rows, reps, lo, n, sub, group)) for name, fn in (
+                ("FP32", tk.score_submax_groupmax_fp32), ("3xTF32", tk.score_submax_groupmax),
+                ("plain", tk.score_submax_groupmax_plain))}
+            print("  time: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
+        return errs
 
     print(f"phase 3 K3/K4: one serve chunk {SERVE_CHUNK} x U={USERS}, Cc={DIM + 1}", flush=True)
     rows32 = torch.randn((SERVE_CHUNK, DIM + 1), device=dev, generator=gen)
@@ -458,7 +506,8 @@ def main() -> None:
         name = str(dtype).replace("torch.", "")
         err, _, _ = check_k3(f"{name} group 128", rows, reps, lo_mid, N_ITEMS, 128, True)
         record("score_groupmax", err)
-        record("score_submax_groupmax", check_k4(f"{name} 32/128", rows, reps, lo_mid, N_ITEMS, 32, 128, True))
+        for k4, e in check_k4(f"{name} 32/128", rows, reps, lo_mid, N_ITEMS, 32, 128, True).items():
+            record(k4, e)
     # The running merge's call: one chunk x 512 users (timed for the report).
     reps_m = reps[:USERS_MERGE].contiguous()
     err, ms, plain_ms = check_k3(
@@ -468,14 +517,55 @@ def main() -> None:
     record("score_groupmax", err, ms, plain_ms, work=(
         2.0 * SERVE_CHUNK * USERS_MERGE * (DIM + 1), nbytes(rows32, reps_m) + out_rows * USERS_MERGE * 4,
     ))
-    # Ragged slabs: mid-catalog (lo + c < n) and past the catalog end.
+    # Ragged slabs: mid-catalog (lo + c < n) and past the catalog end; the
+    # other subgroup widths of the 3xTF32 epilogue (8: two maxima a warp).
     ragged = rows32[4096 : 4096 + 100_000]
     for lo, n in ((4096, N_ITEMS_MERGE), (4096, 50_000)):
         label = f"ragged c=100000 lo={lo} n={n}"
         err, _, _ = check_k3(label, ragged, reps, lo, n, 128, False)
         record("score_groupmax", err)
-        record("score_submax_groupmax", check_k4(label, ragged, reps, lo, n, 32, 128, False))
+        for k4, e in check_k4(label, ragged, reps, lo, n, 32, 128, False).items():
+            record(k4, e)
+    for sub, group in ((8, 32), (16, 64), (64, 128)):
+        for k4, e in check_k4(f"ragged {sub}/{group}", ragged, reps[:300].contiguous(), 4096, 50_000, sub, group,
+                              False).items():
+            record(k4, e)
     del rows32, rows, reps, reps_m, ragged
+    # The other widths take the 3xTF32 tile's other routes (as K5's below).
+    for cc, c, u in ((33, 50_001, 13), (301, 30_000, 300), (512, 20_000, 300)):
+        rows32 = torch.randn((c, cc), device=dev, generator=gen)
+        reps = (torch.randn((u, cc), device=dev, generator=gen) * cc**-0.5).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            for k4, e in check_k4(f"{name} Cc={cc} c={c} U={u}", rows32.to(dtype), reps, 5, c - 1, 32, 128,
+                                  False).items():
+                record(k4, e)
+    del rows32, reps
+    # The bound against the card's arithmetic: all-positive rows and reps, so
+    # that no cancellation hides the error, one nonzero row in 16 so that each
+    # subgroup maximum (sub 16) is that row's 3xTF32 score; the largest error
+    # against the float64 dot, over sum_k |reps_k| M_k, beside the phase-1 part
+    # of gamma (split + truncating accumulation) and gamma itself.
+    print("phase 3 K4 3xTF32 error on all-positive inputs against the stated bound", flush=True)
+    for cc in (33, 128, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = 32768
+            rows = torch.zeros((c, cc), device=dev)
+            rows[::16] = torch.rand((c // 16, cc), device=dev, generator=gen) * 0.5 + 0.5
+            rows = rows.to(dtype)
+            rp = (torch.rand((256, cc), device=dev, generator=gen) * 0.5 + 0.5).contiguous()
+            smax, _ = tk.score_submax_groupmax(rows, rp, 0, c, 16, 32)
+            exact = rows[::16].double() @ rp.double().T
+            scale = rp.double() @ rows.float().abs().amax(dim=0).double()
+            ratio = float(((smax[: c // 16].double() - exact).abs() / scale).max())
+            gamma = tk.phase1_gamma(cc, dtype, tensor_cores=True)
+            gamma1 = gamma - tk._gamma_fp32(cc)
+            name = str(dtype).replace("torch.", "")
+            print(f"  cc={cc} {name}: largest |s - s_fp64| / (sum |reps| M) {ratio:.3e}; phase-1 gamma "
+                  f"{gamma1:.3e} ({ratio / gamma1:.1%} of it), gamma {gamma:.3e}", flush=True)
+            if not ratio <= gamma1:
+                raise SmokeFailure(f"K4 3xTF32 cc={cc} {name}: error {ratio:.3e} above its bound {gamma1:.3e}")
+    del rows, rp, smax, exact, scale
     torch.cuda.empty_cache()
 
     def check_k5(label, rows, reps, lo, col_lo, n, timed):
@@ -674,39 +764,46 @@ def main() -> None:
     table = model._params["item_table"]
 
     # K4 at the shape the serving path gives it (the whole catalog), on the
-    # model's own table and representations; the plain version runs chunk by
-    # chunk (a whole [10M, 4096] score matrix would be 164 GB).
+    # model's own table and representations: the 3xTF32 kernel against the
+    # plain version chunk by chunk (a whole [10M, 4096] score matrix would be
+    # 164 GB), within TOL_SCORE and the certificate's eps, then timed beside
+    # the FP32 kernel on the same inputs.
     reps = torch.from_numpy(
         np.stack([u.user_embedding for u in model.user_representations(histories)])
     ).to(dev)
     reps_aug = torch.cat([reps, reps.new_ones((USERS, 1))], dim=1).contiguous()
     smax, gmax = tk.score_submax_groupmax(table, reps_aug, 0, N_ITEMS, 32, 128)
-    err = 0.0
+    eps = tk.phase1_error_bound(table, reps_aug)
+    err, ratio = 0.0, 0.0
     for lo in range(0, N_ITEMS, SERVE_CHUNK):
         ps, pg = tk.score_submax_groupmax_plain(table[lo : lo + SERVE_CHUNK], reps_aug, lo, N_ITEMS, 32, 128)
         s0, g0 = lo // 32, lo // 128
-        err = max(
-            err,
-            compare(f"K4 submax rows {lo}+", smax[s0 : s0 + ps.shape[0]], ps, TOL_SCORE, quiet=True),
-            compare(f"K4 groupmax rows {lo}+", gmax[g0 : g0 + pg.shape[0]], pg, TOL_SCORE, quiet=True),
-        )
+        for part, got, want in (("submax", smax[s0 : s0 + ps.shape[0]], ps), ("groupmax", gmax[g0 : g0 + pg.shape[0]], pg)):
+            err = max(err, compare(f"K4 {part} rows {lo}+", got, want, TOL_SCORE, quiet=True))
+            ratio = max(ratio, within_eps(f"K4 {part} rows {lo}+", got, want, eps))
     if not (torch.isinf(smax[-(smax.shape[0] - (N_ITEMS + 31) // 32):]).all()):
         raise SmokeFailure("K4 whole catalog: pad rows are not -inf")
+    k4_work = (2.0 * N_ITEMS * USERS * (DIM + 1), nbytes(table, reps_aug, smax, gmax))
+    del smax, gmax
     ms = time_ms(lambda: tk.score_submax_groupmax(table, reps_aug, 0, N_ITEMS, 32, 128), reps=3)
+    fp32_ms = time_ms(lambda: tk.score_submax_groupmax_fp32(table, reps_aug, 0, N_ITEMS, 32, 128), reps=3)
 
     def plain_whole():
         for lo in range(0, N_ITEMS, SERVE_CHUNK):
             tk.score_submax_groupmax_plain(table[lo : lo + SERVE_CHUNK], reps_aug, lo, N_ITEMS, 32, 128)
 
     plain_ms = time_ms(plain_whole, reps=3)
+    eps_ms = time_ms(lambda: tk.phase1_error_bound(table, reps_aug), reps=3)
     print(
-        f"  K4 whole catalog {N_ITEMS} x U={USERS}, sub 32 / group 128: max_abs_err {err:.3e} "
-        f"(tol {TOL_SCORE:.0e}); kernel {ms:.1f} ms, plain (chunked) {plain_ms:.1f} ms", flush=True,
+        f"  K4 whole catalog {N_ITEMS} x U={USERS}, sub 32 / group 128: 3xTF32 max_abs_err {err:.3e} "
+        f"(tol {TOL_SCORE:.0e}), at most {ratio:.4f} x eps (eps {float(eps.min()):.3e}..{float(eps.max()):.3e}); "
+        f"3xTF32 kernel {ms:.1f} ms, FP32 kernel {fp32_ms:.1f} ms on the same inputs (3xTF32 at "
+        f"{ms / fp32_ms:.1%} of it), plain (chunked) {plain_ms:.1f} ms; the bound eps itself {eps_ms:.2f} ms",
+        flush=True,
     )
-    record("score_submax_groupmax", err, ms, plain_ms, work=(
-        2.0 * N_ITEMS * USERS * (DIM + 1), nbytes(table, reps_aug, smax, gmax),
-    ))
-    del reps, reps_aug, smax, gmax
+    record("score_submax_groupmax", err, ms, plain_ms, work=k4_work, tf32_products=3)
+    record("score_submax_groupmax_fp32", 0.0, fp32_ms, plain_ms, work=k4_work)
+    del reps, reps_aug, eps
     torch.cuda.empty_cache()
 
     # The main path: every launch counter from 0, then the entry points.
@@ -716,13 +813,14 @@ def main() -> None:
         "lstm_bwd_dwh": lk.lstm_bwd_dwh,
         "score_groupmax": tk.score_groupmax,
         "score_submax_groupmax": tk.score_submax_groupmax,
+        "score_submax_groupmax_fp32": tk.score_submax_groupmax_fp32,
         "score_count_ge": tk.score_count_ge,
         "gather_rows": rowk.gather_rows,
         "scatter_add_rows": rowk.scatter_add_rows_,
         "cand_score_smem": rowk.cand_score_smem,
         "cand_score_rows": rowk.cand_score_rows,
     }
-    serving_kernels = ("lstm_fwd", "score_groupmax", "score_submax_groupmax")
+    serving_kernels = ("lstm_fwd", "score_groupmax", "score_submax_groupmax", "score_submax_groupmax_fp32")
     eval_kernels = ("lstm_fwd", "score_count_ge")
     training_kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_dwh", "gather_rows")
     warp_kernels = training_kernels + ("cand_score_smem",)  # fit-bench: the table fits shared memory
@@ -744,6 +842,7 @@ def main() -> None:
 
     zero_counters()
     model.recommend_batch(histories, k=K)  # warm-up
+    topk_streamed.rechecked_users = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -752,8 +851,18 @@ def main() -> None:
     t_med = statistics.median(times)
     print(
         f"phase 4 recommend_batch k={K}: {USERS / t_med:.1f} users/s (median of 3: "
-        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per batch of {USERS})", flush=True,
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per batch of {USERS}); the certificate sent "
+        f"{topk_streamed.rechecked_users / 3:g} of {USERS} users a batch to the FP32 K4", flush=True,
     )
+    # The caller's TF32 flag on: the serving path keeps its FP32 matmuls and
+    # the flag.
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ids_tf32, vals_tf32 = model.recommend_batch(histories, k=K, return_scores=True)
+    flag_kept = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not flag_kept or ids_tf32 != ids or not np.array_equal(vals_tf32, vals):
+        raise SmokeFailure(f"phase 4: with allow_tf32 True the batch differs or the flag changed ({flag_kept})")
+    print("  phase 4 with the caller's allow_tf32 True: the same ids and scores, the flag left True", flush=True)
     model_merge = (
         lstm.Hyperparameters(N_ITEMS_MERGE, SEQ_LEN)
         .embedding_dim(DIM)
@@ -768,6 +877,24 @@ def main() -> None:
     ids_m, vals_m = model_merge.recommend_batch(hist_m, k=K, return_scores=True)
     t_m = time.perf_counter() - t0
     print(f"phase 5 running merge: {N_ITEMS_MERGE} items, U={USERS_MERGE}: {t_m * 1e3:.1f} ms (one call)", flush=True)
+    model_rep = (
+        lstm.Hyperparameters(N_ITEMS_MERGE, SEQ_LEN)
+        .embedding_dim(DIM)
+        .lstm_variant(lstm.LSTMVariant.NORMAL)
+        .from_seed(43)
+        .build(dev)
+    )
+    tab_rep = model_rep._params["item_table"]
+    tab_rep.copy_(tab_rep[: N_ITEMS_MERGE // REPEATS].repeat(REPEATS, 1))  # item i's row at i + j * 15,625
+    before = topk_streamed.rechecked_users
+    t0 = time.perf_counter()
+    ids_r, vals_r = model_rep.recommend_batch(hist_m, k=K, return_scores=True)
+    t_r = time.perf_counter() - t0
+    rechecked = topk_streamed.rechecked_users - before
+    print(f"phase 5b {REPEATS} copies of {N_ITEMS_MERGE // REPEATS} items, U={USERS_MERGE}: {t_r * 1e3:.1f} ms "
+          f"(one call); the certificate sent {rechecked} of {USERS_MERGE} users to the FP32 K4", flush=True)
+    if rechecked != USERS_MERGE:
+        raise SmokeFailure(f"phase 5b: {rechecked} users rechecked, not all {USERS_MERGE}: every top-10 ties")
     read_counters("serving path", serving_kernels)
 
     # -- checks against the plain reference ------------------------------------------
@@ -777,6 +904,9 @@ def main() -> None:
     )
     check_lists("phase 5", ids_m, hist_m, N_ITEMS_MERGE)
     check_against_reference("phase 5", model_merge, hist_m, ids_m, vals_m, lstm_apply, torch)
+    check_lists("phase 5b", ids_r, hist_m, N_ITEMS_MERGE)
+    check_against_reference("phase 5b", model_rep, hist_m, ids_r, vals_r, lstm_apply, torch)
+    del model_rep, tab_rep
 
     # -- phase 6: where a batch's device time goes (a separate traced run) ----------
     def profiled(label, fn, top):
@@ -968,6 +1098,22 @@ def main() -> None:
             .from_seed(42)
             .build(dev)
         )
+
+    def check_refit(label, make, data):
+        """Two fresh models from one seed, one fit each: the dense table
+        step sums in a fixed order, so the tables and towers are equal bit
+        for bit."""
+        a, b = make(), make()
+        a.fit(data)
+        b.fit(data)
+        names = ["item_table", *(f"tower.{k}" for k in a._params["tower"])]
+        pairs = [(a._params["item_table"], b._params["item_table"])] + [
+            (a._params["tower"][k], b._params["tower"][k]) for k in a._params["tower"]
+        ]
+        differ = [name for name, (x, y) in zip(names, pairs) if not torch.equal(x, y)]
+        if differ:
+            raise SmokeFailure(f"{label}: two fits from one seed differ in {differ}")
+        print(f"  {label}: two fits from one seed give equal tables and towers, bit for bit", flush=True)
 
     t0 = time.perf_counter()
     ml1m_data = datasets.synthetic_interactions(6040, 3706, 165, rng=0).to_compressed()
@@ -1169,6 +1315,7 @@ def main() -> None:
     )
     profiled("phase 8 profile, one ml1m fit", lambda: model.fit(ml1m_data), top=12)
     del model
+    check_refit("phase 8 ml1m", ml1m_model, ml1m_data)
     torch.cuda.empty_cache()
 
     # -- phase 9: the bench.py configuration, then serving from it ----------------------------
@@ -1196,6 +1343,7 @@ def main() -> None:
         flush=True,
     )
     profiled("phase 9 profile, one bench fit", lambda: model.fit(bench_data), top=12)
+    check_refit("phase 9 bench", bench_model, bench_data)
     ptr, items = bench_data.user_pointers, bench_data.item_ids
     hist_t = [items[ptr[u] : ptr[u + 1]].tolist() for u in range(len(ptr) - 1) if ptr[u + 1] > ptr[u]][:64]
     check_lists("phase 9 recommend_batch", model.recommend_batch(hist_t, k=K), hist_t, 1682)
@@ -1302,7 +1450,8 @@ def main() -> None:
         "lstm_bwd": ("sbr_rs_tpu_torch/csrc/lstm_bwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:82"),
         "lstm_bwd_dwh": ("sbr_rs_tpu_torch/csrc/lstm_bwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:82"),
         "score_groupmax": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:108"),
-        "score_submax_groupmax": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:130"),
+        "score_submax_groupmax": ("sbr_rs_tpu_torch/csrc/score_submax_tc.cu", "sbr_rs_tpu/ops/pallas_topk.py:130"),
+        "score_submax_groupmax_fp32": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:130"),
         "score_count_ge": ("sbr_rs_tpu_torch/csrc/score_count.cu", "sbr_rs_tpu/ops/pallas_topk.py:365"),
         "gather_rows": ("sbr_rs_tpu_torch/csrc/row_gather.cu", "scripts/row_pipeline_probe.py:48"),
         "scatter_add_rows": ("sbr_rs_tpu_torch/csrc/row_gather.cu", "scripts/row_pipeline_probe.py:70"),

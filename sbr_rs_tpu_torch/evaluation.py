@@ -24,7 +24,9 @@ the chunked counter.
 
 Unlike the JAX module, batches are not padded to a fixed shape (PyTorch
 runs eagerly, so there is no program to reuse), there is no mesh branch,
-and out-of-range ids are refused on the host before any gather.
+and out-of-range ids are refused on the host before any gather. The plain
+matmuls (targets, the chunked counter's slabs, the seen correction) run in
+full FP32 whatever the caller's ``allow_tf32`` (:mod:`.utils.precision`).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from .data import CompressedInteractions
 from .errors import InvalidPredictionValue
 from .models.base import ImplicitSequenceModel, _seen_rows
 from .ops.topk_kernels import count_supported, score_count_ge
+from .utils.precision import fp32_matmul
 
 _NEG_MIN = float(np.finfo(np.float32).min)
 
@@ -89,7 +92,8 @@ def _targets(table, reps, test_items, test_in_prefix) -> torch.Tensor:
     """Each user's masked score of its held-out item: ``f32 min`` when the
     item was already seen (the reference masks before it reads the score)."""
     rows_t = table.index_select(0, test_items).to(torch.float32)
-    raw = (reps * rows_t[:, :-1]).sum(dim=1) + rows_t[:, -1]
+    with fp32_matmul():
+        raw = (reps * rows_t[:, :-1]).sum(dim=1) + rows_t[:, -1]
     return torch.where(test_in_prefix, torch.full_like(raw, _NEG_MIN), raw)
 
 
@@ -113,7 +117,8 @@ def _count_catalog_chunked(table, reps, prefix, test_items, test_in_prefix, num_
         lo = min(c * chunk, num_items - chunk)
         col_lo = c * chunk - lo
         rows = table[lo : lo + chunk].to(torch.float32)
-        scores = reps @ rows[:, :-1].T + rows[:, -1]
+        with fp32_matmul():
+            scores = reps @ rows[:, :-1].T + rows[:, -1]
         # Seen ids of this chunk become f32 min. Every other id (and the pad
         # value) goes to a spare column past the chunk, which is dropped:
         # a scatter on the GPU does not skip out-of-range indices.
@@ -149,7 +154,8 @@ def _count_catalog_fused(table, reps, prefix, test_items, test_in_prefix, num_it
     p = prefix.shape[1]
     seen_rows = table.index_select(0, prefix.clamp(0, num_items - 1).reshape(-1))
     seen_rows = seen_rows.to(torch.float32).reshape(u, p, -1)
-    seen_sc = torch.bmm(seen_rows, reps_aug[:, :, None])[:, :, 0]
+    with fp32_matmul():
+        seen_sc = torch.bmm(seen_rows, reps_aug[:, :, None])[:, :, 0]
     valid = prefix < num_items
     seen_ge = ((seen_sc >= targets[:, None]) & valid).sum(dim=1)
     n_seen = valid.sum(dim=1)

@@ -19,16 +19,19 @@ Serving (``recommend_batch``):
   score matrix and one top-k (:func:`topk_small`);
 * larger catalogs: the exact two-phase selection (:func:`topk_streamed`).
   Phase 1 keeps the top ``k + S`` groups by group maximum from the fused
-  score + group-max kernel (:mod:`..ops.topk_kernels`), over the whole
+  score + group-max kernels (:mod:`..ops.topk_kernels`), over the whole
   catalog in one call when the maxima fit ``_MERGE_BUFFER_BYTES`` (with
-  subgroup refinement), else chunk by chunk with a running merge. Phase 2
-  re-scores the kept candidates in f32, drops seen items by id and takes
-  the exact top-k;
+  subgroup refinement, on the tensor cores in 3xTF32, each user's result
+  certified against the FP32 one and the few it cannot certify run again
+  in FP32), else chunk by chunk with a running merge. Phase 2 re-scores the
+  kept candidates in f32, drops seen items by id and takes the exact top-k;
 * seen lists wider than ``_SERVE_MAX_POSTFILTER_SEEN``: chunked scoring
   with a per-chunk seen mask (:func:`topk_streamed_bigseen`).
 
 The budgets keep the JAX package's values, so both packages take the same
-branch for the same shapes. ``approximate=True`` and the sharded paths are
+branch for the same shapes. The plain matmuls of serving run in full FP32
+whatever the caller's ``torch.backends.cuda.matmul.allow_tf32``
+(:func:`..utils.precision.fp32_matmul`); the flag is left as it was. ``approximate=True`` and the sharded paths are
 not ported yet. PyTorch runs eagerly, so there is
 no program cache.
 """
@@ -46,12 +49,15 @@ from ..data import CompressedInteractions, extract_padded_windows, pack_streams,
 from ..errors import InvalidPredictionValue, NoInteractions, NonFiniteLoss
 from ..ops.topk_kernels import (
     groupmax_supported,
+    phase1_error_bound,
     score_groupmax,
     score_submax_groupmax,
+    score_submax_groupmax_fp32,
 )
 from ..ops.sampling import WARP_CANDIDATES
 from ..utils.convert import params_from_numpy
 from ..utils.metrics import FitHistory, logger
+from ..utils.precision import fp32_matmul
 from . import ImplicitUser, Loss, Optimizer, Parallelism
 from .engine import (
     EngineConfig,
@@ -249,13 +255,71 @@ def topk_small(
     """Dense ``[U, N]`` scores, seen items set to ``-inf``, one top-k."""
     tab = table.to(torch.float32)
     n = tab.shape[0]
-    scores = reps @ tab[:, :-1].T + tab[:, -1]
+    with fp32_matmul():
+        scores = reps @ tab[:, :-1].T + tab[:, -1]
     # Padding slots hold n: a masked scatter skips them (and any id
     # outside the catalog) instead of indexing past the end.
     valid = (seen >= 0) & (seen < n)
     rows = torch.arange(reps.shape[0], device=reps.device)[:, None].expand_as(seen)
     scores[rows[valid], seen[valid]] = float("-inf")
     return torch.topk(scores, min(k, n), dim=1)
+
+
+def _submax_winners(
+    allsub: torch.Tensor, gmax: torch.Tensor, kk: int, r: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1's selection from the subgroup and group maxima ``[rows,
+    U]``: the top ``kk`` groups, then among their ``r`` subgroups each the
+    top ``kk`` subgroups. Returns ``(sids [U, w], theta [U])``: the
+    winning subgroup ids, and the largest maximum left out, ``max(the
+    w1-th selected group maximum, the kk-th selected subgroup maximum)``
+    (each ``-inf`` where everything was selected), which bounds every
+    score outside the winners."""
+    u = allsub.shape[1]
+    neg_inf = allsub.new_full((u,), float("-inf"))
+    w1 = min(kk, gmax.shape[0])
+    gv, gi = torch.topk(gmax, w1, dim=0)  # [w1, U]
+    theta_g = gv[-1] if w1 < gmax.shape[0] else neg_inf
+    sids = (gi.T[:, :, None] * r + torch.arange(r, device=gi.device)).reshape(u, w1 * r)
+    svals = torch.gather(allsub, 0, sids.T).T  # [U, w1 * r]
+    w = min(kk, w1 * r)
+    sv, sp = torch.topk(svals, w, dim=1)
+    theta_s = sv[:, -1] if w < w1 * r else neg_inf
+    return torch.gather(sids, 1, sp), torch.maximum(theta_g, theta_s)
+
+
+def _rescore(
+    table: torch.Tensor,
+    reps_aug: torch.Tensor,
+    seen: torch.Tensor,
+    gids: torch.Tensor,
+    width: int,
+    k_out: int,
+    phase2_buffer_bytes: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 2: the items of the winning (sub)groups ``gids [U, w]`` of
+    ``width`` rows each, scored in FP32 a few slots at a time so that the
+    gathered rows stay under the budget; seen ids and ids past the catalog
+    dropped; the top ``k_out`` values and their ids."""
+    n, c_param = table.shape
+    u, w = gids.shape
+    slot_bs = max(1, min(w, phase2_buffer_bytes // (u * width * c_param * 4)))
+    arange_w = torch.arange(width, device=table.device)
+    cand_parts, score_parts = [], []
+    for s0 in range(0, w, slot_bs):
+        ids = (gids[:, s0 : s0 + slot_bs, None] * width + arange_w).reshape(u, -1)
+        rows_g = table.index_select(0, ids.clamp(max=n - 1).reshape(-1))
+        rows_g = rows_g.to(torch.float32).reshape(u, ids.shape[1], c_param)
+        with fp32_matmul():
+            score_parts.append(torch.bmm(rows_g, reps_aug[:, :, None])[:, :, 0])
+        cand_parts.append(ids)
+    cand = torch.cat(cand_parts, dim=1)
+    cscores = torch.cat(score_parts, dim=1)
+    cscores.masked_fill_(cand >= n, float("-inf"))
+    # Drop seen candidates by id (broadcast compare against the seen rows).
+    cscores.masked_fill_((cand[:, :, None] == seen[:, None, :]).any(dim=-1), float("-inf"))
+    v, p = torch.topk(cscores, k_out, dim=1)
+    return v, torch.gather(cand, 1, p)
 
 
 def topk_streamed(
@@ -282,6 +346,19 @@ def topk_streamed(
     and takes the top ``k``: at most ``S`` of the top ``kk`` are seen, so
     ``k`` survive. Equal scores exactly at the k-th value may pick other
     ids than a dense sort; values are exact.
+
+    The single-pass refinement scores on the tensor cores in 3xTF32
+    (:func:`..ops.topk_kernels.score_submax_groupmax`), whose scores lie
+    within ``eps_u`` (:func:`..ops.topk_kernels.phase1_error_bound`, derived
+    from the arithmetic) of the FP32 scores phase 2 computes. So every item
+    left out of the candidates scores at most ``theta_u + eps_u`` in FP32
+    (``theta_u``: the largest maximum left out, :func:`_submax_winners`),
+    and a user whose k-th phase-2 value is at least that is exact, ties at
+    the k-th value aside. The other users run phase 1 again in FP32
+    (:func:`..ops.topk_kernels.score_submax_groupmax_fp32`) and phase 2, and
+    their rows are replaced; ``topk_streamed.rechecked_users`` counts them.
+    The ``group``-only single pass and the running merge score in FP32
+    (:func:`..ops.topk_kernels.score_groupmax`).
     """
     n, c_param = table.shape
     dev = table.device
@@ -318,20 +395,29 @@ def topk_streamed(
             break
     r = group // sub
 
+    if single_pass and r > 1:
+        # One kernel call streams the whole table once; then the certificate.
+        allsub, gmax = score_submax_groupmax(table, reps_aug, 0, n, sub, group)
+        sids, theta = _submax_winners(allsub, gmax, kk, r)
+        del allsub, gmax
+        vals, ids = _rescore(table, reps_aug, seen, sids, sub, k_out, phase2_buffer_bytes)
+        eps = phase1_error_bound(table, reps_aug)
+        bound = torch.nextafter(theta + eps, torch.full_like(theta, float("inf")))
+        certified = torch.isneginf(theta) | (vals[:, -1] >= bound)
+        redo = torch.nonzero(~certified).flatten()
+        topk_streamed.rechecked_users += int(redo.numel())
+        if redo.numel():
+            reps_r = reps_aug[redo].contiguous()
+            allsub, gmax = score_submax_groupmax_fp32(table, reps_r, 0, n, sub, group)
+            sids, _ = _submax_winners(allsub, gmax, kk, r)
+            del allsub, gmax
+            vals[redo], ids[redo] = _rescore(
+                table, reps_r, seen[redo], sids, sub, k_out, phase2_buffer_bytes
+            )
+        return vals, ids
     if single_pass:
-        # One kernel call streams the whole table once.
-        if r > 1:
-            allsub, gmax = score_submax_groupmax(table, reps_aug, 0, n, sub, group)
-        else:
-            allsub = score_groupmax(table, reps_aug, 0, n, sub)
-            gmax = allsub
-        w1 = min(kk, gmax.shape[0])
-        gids = torch.topk(gmax, w1, dim=0).indices.T  # [U, w1]
-        if r > 1:
-            sids = (gids[:, :, None] * r + torch.arange(r, device=dev)).reshape(u, w1 * r)
-            svals = torch.gather(allsub, 0, sids.T).T  # [U, w1 * r]
-            sp = torch.topk(svals, min(kk, w1 * r), dim=1).indices
-            gids = torch.gather(sids, 1, sp)
+        gmax = score_groupmax(table, reps_aug, 0, n, group)
+        gids = torch.topk(gmax, min(kk, gmax.shape[0]), dim=0).indices.T  # [U, w1]
     else:
         # Running merge, chunk by chunk (sub == group here). Unfilled slots
         # hold distinct group ids past the catalog: never a real candidate.
@@ -348,26 +434,10 @@ def topk_streamed(
             mg = torch.cat([gids, ch * groups_per_chunk + cp.T], dim=1)
             vals, p = torch.topk(mv, kk, dim=1)
             gids = torch.gather(mg, 1, p)
+    return _rescore(table, reps_aug, seen, gids, group, k_out, phase2_buffer_bytes)
 
-    # Phase 2: re-score the candidates of the winning (sub)groups, a few
-    # slots at a time so the gathered rows stay under the budget.
-    w = gids.shape[1]
-    slot_bs = max(1, min(w, phase2_buffer_bytes // (u * sub * c_param * 4)))
-    arange_sub = torch.arange(sub, device=dev)
-    cand_parts, score_parts = [], []
-    for s0 in range(0, w, slot_bs):
-        ids = (gids[:, s0 : s0 + slot_bs, None] * sub + arange_sub).reshape(u, -1)
-        rows_g = table.index_select(0, ids.clamp(max=n - 1).reshape(-1))
-        rows_g = rows_g.to(torch.float32).reshape(u, ids.shape[1], c_param)
-        score_parts.append(torch.bmm(rows_g, reps_aug[:, :, None])[:, :, 0])
-        cand_parts.append(ids)
-    cand = torch.cat(cand_parts, dim=1)
-    cscores = torch.cat(score_parts, dim=1)
-    cscores.masked_fill_(cand >= n, float("-inf"))
-    # Drop seen candidates by id (broadcast compare against the seen rows).
-    cscores.masked_fill_((cand[:, :, None] == seen[:, None, :]).any(dim=-1), float("-inf"))
-    v, p = torch.topk(cscores, k_out, dim=1)
-    return v, torch.gather(cand, 1, p)
+
+topk_streamed.rechecked_users = 0
 
 
 def topk_streamed_bigseen(
@@ -387,7 +457,8 @@ def topk_streamed_bigseen(
         lo = ch * serve_chunk
         ids = lo + offsets
         tc = table.index_select(0, ids.clamp(max=n - 1)).to(torch.float32)
-        scores = reps @ tc[:, :-1].T + tc[:, -1]
+        with fp32_matmul():
+            scores = reps @ tc[:, :-1].T + tc[:, -1]
         scores.masked_fill_((ids >= n)[None, :], float("-inf"))
         local = seen - lo
         hit = (local >= 0) & (local < serve_chunk)  # seen ids inside this chunk
@@ -448,10 +519,6 @@ class ImplicitSequenceModel:
                 raise RuntimeError(
                     f"cannot build a model on {device}: this PyTorch has no usable CUDA device"
                 )
-            # Full f32 products for the plain matmuls of serving (the dense
-            # top-k and phase 2): phase 1's maxima must bound the scores
-            # phase 2 recomputes, and TF32 keeps ~3 decimal digits.
-            torch.backends.cuda.matmul.allow_tf32 = False
         elif device.type != "cpu":
             raise ValueError(f"models run on cuda or cpu, not {device}")
         self.hyper = hyper
@@ -645,7 +712,8 @@ class ImplicitSequenceModel:
         u = len(lens)
         idx = torch.from_numpy(inputs).to(self.device).reshape(-1)
         emb = table_embeddings(self._params).index_select(0, idx).to(torch.float32)
-        hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1))
+        with fp32_matmul():
+            hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1))
         last = torch.from_numpy(lengths - 1).to(self.device)
         return hidden[torch.arange(u, device=self.device), last]
 
@@ -719,7 +787,8 @@ class ImplicitSequenceModel:
         rep = torch.as_tensor(
             np.asarray(user.user_embedding, dtype=np.float32), device=self.device
         )
-        scores = (rows[:, :-1] @ rep + rows[:, -1]).cpu().numpy()
+        with fp32_matmul():
+            scores = (rows[:, :-1] @ rep + rows[:, -1]).cpu().numpy()
         if not np.all(np.isfinite(scores)):
             raise InvalidPredictionValue()
         return scores

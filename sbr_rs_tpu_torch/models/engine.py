@@ -19,9 +19,12 @@ layout), as the JAX step does it:
 4. scores dot a bias-augmented hidden state against whole fused rows; the
    pairwise loss is masked and summed (``src/models/lstm.rs:322-328``);
 5. the table update, one of two:
-   * dense (small catalogs): one scatter-add gathers the row gradients with
-     touched and bias-touched counts, and the whole table takes
-     :func:`..ops.optimizers.dense_row_update`;
+   * dense (small catalogs): :func:`..ops.optimizers.dedupe_and_sum` sums
+     each touched row's gradients in a fixed order (so two runs give the
+     same bits), one scatter of the unique rows
+     (:func:`..ops.row_kernels.scatter_add_rows_`) lays them out, and the
+     whole table takes :func:`..ops.optimizers.dense_row_update` under their
+     touched and bias-touched flags;
    * sparse (``sparse_updates=True``): :func:`..ops.optimizers.dedupe_and_sum`
      sums each touched row's gradients, and
      :func:`..ops.optimizers.sparse_update` updates those rows alone;
@@ -41,7 +44,7 @@ import torch
 
 from ..ops import optimizers as opt_ops
 from ..ops.losses import pairwise_loss
-from ..ops.row_kernels import cand_score, gather_rows
+from ..ops.row_kernels import cand_score, gather_rows, scatter_add_rows_
 from ..ops.sampling import WARP_CANDIDATES, warp_select_onehot
 from . import Loss, Optimizer
 
@@ -235,20 +238,23 @@ def make_train_step(
                 bias_valid=bias_valid,
             )
         else:
-            # ONE scatter-add of the row gradients plus touched and
-            # bias-touched counts; invalid occurrences land on a dropped row
-            # past the table.
-            scatter_idx = torch.where(occ_valid, flat_idx, num_items)
-            payload = torch.cat(
-                [d_rows, d_rows.new_ones((d_rows.shape[0], 1)), bias_occ[:, None].to(d_rows.dtype)],
-                dim=1,
+            # The row gradients summed in a fixed order (the sparse path's
+            # sorted run sums: a float scatter-add on the card sums with
+            # atomics in a run-dependent order), then one scatter of each
+            # touched row's sum by the row kernel (the sentinel slots drop)
+            # and its touched and bias-touched flags (repeated ids only at
+            # the sentinel, which every non-live slot writes False to).
+            dd, summed, bias_valid = opt_ops.dedupe_and_sum(
+                flat_idx, occ_valid, d_rows, bias_occ, num_items
             )
-            d_aug = payload.new_zeros((num_items + 1, payload.shape[1]))
-            d_aug.index_add_(0, scatter_idx, payload)
-            d_aug = d_aug[:num_items]
+            grad = scatter_add_rows_(summed.new_zeros((num_items, c_param)), dd.row_ids, summed)
+            touched = torch.zeros((num_items + 1,), dtype=torch.bool, device=dev)
+            bias_touched = torch.zeros_like(touched)
+            touched[dd.row_ids] = dd.valid
+            bias_touched[dd.row_ids] = dd.valid & bias_valid
             opt_ops.dense_row_update(
-                kind, lr_t, l2, table, opt_state["item_table"], d_aug[:, :-2],
-                d_aug[:, -2] > 0, step, bias_touched=d_aug[:, -1] > 0,
+                kind, lr_t, l2, table, opt_state["item_table"], grad,
+                touched[:num_items], step, bias_touched=bias_touched[:num_items],
             )
         for name, p in params["tower"].items():
             opt_ops.dense_update(kind, lr_t, l2, p, opt_state["tower"][name], d_tower[name], step)

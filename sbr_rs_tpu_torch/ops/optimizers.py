@@ -201,7 +201,7 @@ def _blocked_cumsum(x: torch.Tensor, block: int = 128) -> torch.Tensor:
     Coupled LSTM, BPR, Adam), this one by 8.5e-5."""
     m = x.shape[0]
     nb = -(-m // block)
-    xp = torch.cat([x, x.new_zeros((nb * block - m,) + tuple(x.shape[1:]))])
+    xp = x if nb * block == m else torch.cat([x, x.new_zeros((nb * block - m,) + tuple(x.shape[1:]))])
     inner = torch.cumsum(xp.reshape((nb, block) + tuple(x.shape[1:])), dim=1)
     totals = torch.cumsum(inner[:, -1], dim=0)
     offsets = torch.cat([torch.zeros_like(totals[:1]), totals[:-1]])  # exclusive
@@ -216,34 +216,36 @@ def dedupe_and_sum(
     num_rows: int,
 ) -> Tuple[DedupedRows, torch.Tensor, torch.Tensor]:
     """:func:`dedupe_rows` + :func:`segment_sum_grads` + per-row bias
-    validity from cumulative scans, in OCCURRENCE space: a row's slot is
-    the last occurrence of its run in sorted order, and every other slot
-    holds ``num_rows`` (so the sentinel repeats and the real ids are
-    unique). A run's sum is ``cum[end] - cum[start - 1]``, the run start
-    found by a cummax over start positions; it inherits rounding from the
-    prefix before it, as the JAX package's does (:func:`_blocked_cumsum`).
+    validity, in OCCURRENCE space: a row's slot is the last occurrence of
+    its run in sorted order, and every other slot holds ``num_rows`` (so the
+    sentinel repeats and the real ids are unique). A run's sum is
+    ``cum[end] - cum[start - 1]``, the run start found by a binary search of
+    the sorted ids (the JAX package takes a cummax; the positions are the
+    same); it inherits rounding from the prefix before it, as the JAX
+    package's does (:func:`_blocked_cumsum`). Every step is deterministic:
+    the bias counts are sums of 0 and 1, exact in any order.
 
     ``row_grads [M, C]`` f32; ``bias_occ [M]`` bool (the occurrence touches
-    the bias column). Returns ``(dd, summed [M, C], bias_valid [M])``;
-    ``dd.seg_id`` is zeros in this layout.
+    the bias column). Returns ``(dd, summed [M, C], bias_valid [M])``, the
+    bias flag meaningful at the live slots; ``dd.seg_id`` is zeros in this
+    layout.
     """
     m = indices.shape[0]
     s, order, starts = _sorted_occurrences(indices, occurrence_valid, num_rows)
     gs = gather_rows(row_grads, order)
-    bs = bias_occ[order].to(torch.float32)
-    pos = torch.arange(m, device=s.device)
     ends = torch.ones_like(starts)
     ends[:-1] = starts[1:]
-    start_pos = torch.cummax(torch.where(starts, pos, -1), dim=0).values
+    start_pos = torch.searchsorted(s, s)  # the first position of each id: its run's start
     prev = start_pos - 1  # the last position before this run (-1: none)
     has_prev = (prev >= 0).to(torch.float32)
     cum = _blocked_cumsum(gs)
-    summed = cum - gather_rows(cum, prev.clamp(min=0)) * has_prev[:, None]
-    bcum = torch.cumsum(bs, dim=0)  # counts of 0/1: exact in any order
-    bias_valid = (bcum - bcum[prev.clamp(min=0)] * has_prev) > 0.0
+    summed = torch.addcmul(cum, gather_rows(cum, prev.clamp(min=0)), has_prev[:, None], value=-1.0)
+    bias_count = torch.zeros((m,), dtype=torch.float32, device=s.device)
+    bias_count.index_add_(0, start_pos, bias_occ[order].to(torch.float32))
+    bias_valid = bias_count[start_pos] > 0.0
     live = ends & (s < num_rows)
     row_ids = torch.where(live, s, num_rows)
-    return DedupedRows(order, torch.zeros_like(pos), row_ids, live), summed, bias_valid
+    return DedupedRows(order, torch.zeros_like(start_pos), row_ids, live), summed, bias_valid
 
 
 def sparse_update(

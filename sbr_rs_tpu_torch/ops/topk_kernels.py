@@ -10,12 +10,19 @@ Serving (phase 1 of the exact two-phase top-k in ``models/base.py``): a
 score is ``-inf`` unless its row is inside the catalog (``lo + i < n``) and
 inside the call (``i < C``), and only group maxima are kept:
 
-* :func:`score_groupmax` -- maxima over groups of ``group`` rows;
+* :func:`score_groupmax` -- maxima over groups of ``group`` rows, FP32
+  (``csrc/score_groupmax.cu``);
 * :func:`score_submax_groupmax` -- maxima over subgroups of ``sub`` rows
-  and groups of ``group`` rows, from one pass.
+  and groups of ``group`` rows, from one pass, on the tensor cores in
+  3xTF32 (``csrc/score_submax_tc.cu``), with :func:`phase1_error_bound`
+  bounding how far its scores may lie from the FP32 scores that phase 2
+  recomputes;
+* :func:`score_submax_groupmax_fp32` -- the same maxima in FP32 FMAs
+  (``csrc/score_groupmax.cu``), which the serving path runs again for the
+  users whose top-k that bound cannot certify.
 
-Both return :func:`groupmax_rows` rows, the rows past ``C`` all ``-inf``,
-as the TPU functions do (``csrc/score_groupmax.cu``).
+All three return :func:`groupmax_rows` rows, the rows past ``C`` all
+``-inf``, as the TPU functions do.
 
 Evaluation (the fused rank counter of ``evaluation.py``):
 
@@ -26,10 +33,10 @@ Evaluation (the fused rank counter of ``evaluation.py``):
 For CUDA tensors the wrappers launch the kernels and raise on input they
 do not take; for CPU tensors, and only for those, they run the plain
 versions (:func:`score_groupmax_plain`, :func:`score_submax_groupmax_plain`,
-:func:`score_count_ge_plain`). The group-max kernels multiply in FP32 FMAs;
-the rank count multiplies on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``:
-each f32 operand split into two TF32 parts, three products per term), whose
-scores stay within a few 1e-6 of FP32's. The plain versions are FP32.
+:func:`score_count_ge_plain`). The 3xTF32 kernels (``csrc/tf32x3.cuh``: each
+f32 operand split into two TF32 parts, three products per term, on the
+tiles of ``csrc/score_tile.cuh``) give scores within a few 1e-6 of FP32's;
+the plain versions are FP32.
 """
 
 from __future__ import annotations
@@ -172,6 +179,30 @@ def score_groupmax(
     return out
 
 
+def _split_reps_scratch(u: int, cc: int, dev: torch.device) -> torch.Tensor:
+    """The scratch a 3xTF32 kernel splits ``reps_aug [u, cc]`` into, in the
+    layout of ``csrc/score_tile.cuh``."""
+    lib = _build.library()
+    lib.sbr_score_tile_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sbr_score_tile_scratch_floats.restype = ctypes.c_longlong
+    return torch.empty((lib.sbr_score_tile_scratch_floats(u, cc),), dtype=torch.float32, device=dev)
+
+
+def _check_submax(chunk_rows, reps_aug, sub, group, name) -> None:
+    c, cc = chunk_rows.shape
+    u = reps_aug.shape[0]
+    if group % sub or sub >= group:
+        raise ValueError(f"sub={sub} must be a proper divisor of group={group}")
+    if not (groupmax_supported(c, cc, u, sub) and groupmax_supported(c, cc, u, group)):
+        raise ValueError(f"{name} does not take sub={sub}, group={group}, Cc={cc}, U={u}")
+
+
+def _submax_plain(chunk_rows, reps_aug, lo, n, sub, group):
+    c = chunk_rows.shape[0]
+    smax, gmax = score_submax_groupmax_plain(chunk_rows, reps_aug, lo, n, sub, group)
+    return _pad_to(smax, groupmax_rows(c, sub)), _pad_to(gmax, groupmax_rows(c, group))
+
+
 def score_submax_groupmax(
     chunk_rows: torch.Tensor,
     reps_aug: torch.Tensor,
@@ -181,22 +212,118 @@ def score_submax_groupmax(
     group: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``([groupmax_rows(C, sub), U], [groupmax_rows(C, group), U])``
-    subgroup and group maxima from one pass; ``sub`` divides ``group``.
-    ``score_submax_groupmax.launches`` counts the kernel's launches."""
+    subgroup and group maxima from one pass; ``sub`` divides ``group``. On
+    the card the scores are 3xTF32 (``csrc/score_submax_tc.cu``; a pre-pass
+    in the same call splits ``reps_aug`` into a scratch buffer), within
+    :func:`phase1_error_bound` of the FP32 scores phase 2 computes.
+    ``score_submax_groupmax.launches`` counts the calls that launch it."""
     c, cc = chunk_rows.shape
     u = reps_aug.shape[0]
-    if group % sub or sub >= group:
-        raise ValueError(f"sub={sub} must be a proper divisor of group={group}")
-    if not (groupmax_supported(c, cc, u, sub) and groupmax_supported(c, cc, u, group)):
-        raise ValueError(
-            f"score_submax_groupmax does not take sub={sub}, group={group}, Cc={cc}, U={u}"
-        )
+    _check_submax(chunk_rows, reps_aug, sub, group, "score_submax_groupmax")
     if not _route(chunk_rows, "score_submax_groupmax"):
-        smax, gmax = score_submax_groupmax_plain(chunk_rows, reps_aug, lo, n, sub, group)
-        return _pad_to(smax, groupmax_rows(c, sub)), _pad_to(gmax, groupmax_rows(c, group))
-    smax, gmax = _launch(chunk_rows, reps_aug, lo, n, sub, group, "score_submax_groupmax")
+        return _submax_plain(chunk_rows, reps_aug, lo, n, sub, group)
+    dev = chunk_rows.device
+    if chunk_rows.dtype == torch.float32:
+        fn = _build.library().sbr_score_submax_tc_f32
+    elif chunk_rows.dtype == torch.bfloat16:
+        fn = _build.library().sbr_score_submax_tc_bf16
+    else:
+        raise ValueError(f"score_submax_groupmax: rows must be float32 or bfloat16, got {chunk_rows.dtype}")
+    if reps_aug.device != dev or reps_aug.dtype != torch.float32 or tuple(reps_aug.shape) != (u, cc):
+        raise ValueError(
+            f"score_submax_groupmax: reps_aug must be float32 [{u}, {cc}] on {dev}, got "
+            f"{reps_aug.dtype} {tuple(reps_aug.shape)} on {reps_aug.device}"
+        )
+    if not (chunk_rows.is_contiguous() and reps_aug.is_contiguous()):
+        raise ValueError("score_submax_groupmax: rows and reps_aug must be contiguous")
+    scratch = _split_reps_scratch(u, cc, dev)
+    smax = torch.empty((groupmax_rows(c, sub), u), dtype=torch.float32, device=dev)
+    gmax = torch.empty((groupmax_rows(c, group), u), dtype=torch.float32, device=dev)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(
+            chunk_rows.data_ptr(), reps_aug.data_ptr(), scratch.data_ptr(), smax.data_ptr(),
+            gmax.data_ptr(), c, cc, u, int(lo), int(n), sub, group, stream,
+        )
+    _build.check(status, "score_submax_groupmax")
     score_submax_groupmax.launches += 1
     return smax, gmax
+
+
+def score_submax_groupmax_fp32(
+    chunk_rows: torch.Tensor,
+    reps_aug: torch.Tensor,
+    lo: int,
+    n: int,
+    sub: int,
+    group: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`score_submax_groupmax` with FP32 scores
+    (``csrc/score_groupmax.cu``, FP32 FMAs outside the tensor cores).
+    ``score_submax_groupmax_fp32.launches`` counts the kernel's launches."""
+    _check_submax(chunk_rows, reps_aug, sub, group, "score_submax_groupmax_fp32")
+    if not _route(chunk_rows, "score_submax_groupmax_fp32"):
+        return _submax_plain(chunk_rows, reps_aug, lo, n, sub, group)
+    smax, gmax = _launch(chunk_rows, reps_aug, lo, n, sub, group, "score_submax_groupmax_fp32")
+    score_submax_groupmax_fp32.launches += 1
+    return smax, gmax
+
+
+# -- the error bound of phase 1 ----------------------------------------------
+
+_U32 = 2.0**-24  # the unit roundoff of FP32
+
+
+def _gamma_fp32(m: int) -> float:
+    """Higham's ``gamma_m = m u / (1 - m u)``: an FP32 dot of ``m`` terms,
+    in any order of summation, lies within ``gamma_m * sum |a_k b_k|`` of
+    the exact one."""
+    return m * _U32 / (1.0 - m * _U32)
+
+
+def phase1_gamma(cc: int, rows_dtype: torch.dtype, tensor_cores: bool) -> float:
+    """``gamma`` of :func:`phase1_error_bound`: the factor of ``sum_k
+    |rows_k| |reps_k|`` that bounds |phase-1 score - phase-2 score| for rows
+    of width ``cc``. Phase 2 is an FP32 dot (``gamma_cc``). Phase 1 is
+    either FP32 too (the plain version, ``tensor_cores=False``), or 3xTF32
+    (``csrc/score_submax_tc.cu``, which derives the terms): the split's
+    dropped part, ``3 * 2^-22 (1 + 2^-10)`` for f32 rows and ``2^-22 (1 +
+    2^-10)`` for bf16 rows (exact in TF32), plus the truncating accumulation
+    of ``P = 3`` (or 2) exact TF32 products a term, each entering the FP32
+    accumulator through at most two truncations (its alignment, and the
+    normalisation of the sum it joins) of at most ``2^-23`` of a running
+    magnitude below ``(1 + 2^-8)`` times the sum: ``P * cc * 2^-22 (1 +
+    2^-8)``."""
+    if not tensor_cores:
+        return 2.0 * _gamma_fp32(cc)
+    exact_rows = rows_dtype == torch.bfloat16
+    products = 2 if exact_rows else 3
+    split = (1 if exact_rows else 3) * 2.0**-22 * (1 + 2.0**-10)
+    accumulation = products * cc * 2.0**-22 * (1 + 2.0**-8)
+    return split + accumulation + _gamma_fp32(cc)
+
+
+def phase1_error_bound(table: torch.Tensor, reps_aug: torch.Tensor) -> torch.Tensor:
+    """``eps [U]`` (f32): for every row ``i`` of ``table [N, Cc]``, the
+    score :func:`score_submax_groupmax` gives user ``u`` lies within
+    ``eps[u]`` of the FP32 score ``rows[i] . reps_aug[u]`` that phase 2
+    recomputes: ``eps[u] = gamma * sum_k |reps_aug[u, k]| M_k`` with ``M_k =
+    max_i |table[i, k]|`` and ``gamma`` from :func:`phase1_gamma` (3xTF32
+    on the card, FP32 for CPU tensors, whose phase 1 is the plain FP32
+    version). Derived, not fitted: the serving path certifies its top-k
+    with it. Rounded up to the next f32."""
+    cc = table.shape[1]
+    gamma = phase1_gamma(cc, table.dtype, tensor_cores=table.device.type == "cuda")
+    # M_k from one aminmax over the rows (abs() would copy the table).
+    lo, hi = torch.aminmax(table, dim=0)
+    m = torch.maximum(lo.abs(), hi.abs()).to(torch.float64)
+    eps = (reps_aug.to(torch.float64).abs() @ m * gamma).to(torch.float32)
+    return torch.nextafter(eps, torch.full_like(eps, float("inf")))
 
 
 def count_supported(c: int, cc: int, u: int) -> bool:
@@ -275,10 +402,7 @@ def score_count_ge(
         raise ValueError("score_count_ge: rows must be contiguous")
     counts = torch.zeros((u,), dtype=torch.int32, device=dev)
     probe_scores = torch.empty((u,), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    lib.sbr_score_count_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.sbr_score_count_scratch_floats.restype = ctypes.c_longlong
-    scratch = torch.empty((lib.sbr_score_count_scratch_floats(u, cc),), dtype=torch.float32, device=dev)
+    scratch = _split_reps_scratch(u, cc, dev)
     fn.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
@@ -298,4 +422,5 @@ def score_count_ge(
 
 score_groupmax.launches = 0
 score_submax_groupmax.launches = 0
+score_submax_groupmax_fp32.launches = 0
 score_count_ge.launches = 0

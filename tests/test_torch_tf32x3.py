@@ -130,3 +130,82 @@ def test_dwh_geometry_covers_rows_and_tiles(m, d, gd, slots):
     assert (tiles_k - 1) * 64 < d <= tiles_k * 64 and (tiles_c - 1) * 128 < gd <= tiles_c * 128
     # One wave: no more blocks than slots, unless the tiles alone outnumber them.
     assert splits * tiles_k * tiles_c <= slots or splits == 1
+
+
+# -- the accumulation: K4's phase-1 bound (ops/topk_kernels.py phase1_gamma) --
+
+
+def _truncate_f32(x):
+    """float64 -> float32 rounded toward zero, as the tensor cores round."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _align(x, ulp):
+    """``x`` cut to a multiple of ``ulp`` toward zero: an operand shifted to
+    the exponent of the largest one, its low bits dropped."""
+    return np.sign(x) * np.floor(np.abs(x) / ulp) * ulp
+
+
+def tensor_core_dot(a, b, model):
+    """``a [m, K] x b [n, K]^T`` as K4 issues it: per 8-deep k-step the
+    wgmmas a_lo b_hi, a_hi b_lo, a_hi b_hi (the first skipped when a is
+    exact in TF32) into one FP32 accumulator. ``model`` is how the tensor
+    cores might add: "sequential" (each product added and the sum truncated
+    to FP32) or "aligned" (each wgmma's 8 products and the accumulator
+    aligned to the largest of them, cut to 24 bits there, summed, and the
+    sum truncated)."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    f = lambda x: x.astype(np.float64)  # noqa: E731
+    exact_a = not al.any()
+    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        pairs = ([] if exact_a else [(al, bh)]) + [(ah, bl), (ah, bh)]
+        for x, y in pairs:
+            prods = f(x[:, ks])[:, None, :] * f(y[:, ks])[None, :, :]  # exact: TF32 x TF32
+            if model == "sequential":
+                for q in range(prods.shape[2]):
+                    acc = _truncate_f32(f(acc) + prods[:, :, q])
+            else:
+                top = np.maximum(np.abs(f(acc)), np.abs(prods).max(axis=2))
+                ulp = np.exp2(np.floor(np.log2(np.where(top > 0, top, 1.0))) - 23)
+                total = _align(f(acc), ulp) + _align(prods, ulp[:, :, None]).sum(axis=2)
+                acc = _truncate_f32(total)
+    return acc
+
+
+@pytest.mark.parametrize("model", ["sequential", "aligned"])
+@pytest.mark.parametrize("signs", ["positive", "mixed"])
+@pytest.mark.parametrize("rows_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cc", [33, 128, 512])
+def test_phase1_gamma_covers_truncating_accumulation(cc, rows_dtype, signs, model):
+    """The 3xTF32 score's distance from the exact dot stays within the
+    phase-1 part of phase1_gamma (split + accumulation) times sum |a||b|,
+    under either model of the tensor cores' truncation; all-positive
+    inputs let no cancellation hide the error."""
+    import torch
+
+    from sbr_rs_tpu_torch.ops import topk_kernels
+
+    rng = np.random.default_rng(cc + (rows_dtype == "bfloat16"))
+    if signs == "positive":
+        rows = rng.uniform(0.5, 1.0, (48, cc)).astype(np.float32)
+        reps = rng.uniform(0.5, 1.0, (24, cc)).astype(np.float32)
+    else:
+        rows = (rng.normal(size=(48, cc)) * 10.0 ** rng.uniform(-3, 3, (48, 1))).astype(np.float32)
+        reps = (rng.normal(size=(24, cc)) * cc**-0.5).astype(np.float32)
+    if rows_dtype == "bfloat16":
+        rows = rows.astype(ml_dtypes.bfloat16).astype(np.float32)
+    dtype = torch.bfloat16 if rows_dtype == "bfloat16" else torch.float32
+    gamma = topk_kernels.phase1_gamma(cc, dtype, tensor_cores=True) - topk_kernels._gamma_fp32(cc)
+    exact = rows.astype(np.float64) @ reps.astype(np.float64).T
+    scale = np.abs(rows).astype(np.float64) @ np.abs(reps).astype(np.float64).T
+    err = np.abs(tensor_core_dot(rows, reps, model) - exact)
+    assert (err <= gamma * scale).all(), (float((err / scale).max()), gamma)
+    # The truncation is what the accumulation term is for: on long positive
+    # sums it costs far more than the split's own bound.
+    if signs == "positive" and rows_dtype == "float32" and cc >= 128:
+        assert float((err / scale).max()) > 4 * BOUND_F32
