@@ -12,8 +12,13 @@ LSTM serving, evaluation and training paths, one phase per printed line:
 2. the kernel build and its time;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving and training paths, with the largest error beside the
-   stated tolerance and the median time of each: the LSTM forward (K1), the
-   LSTM backward (K2) and its dW_h reduction (3xTF32 on the tensor cores: two
+   stated tolerance and the median time of each: the LSTM forward (K1: the
+   serving shape, the ml1m and fit-10M-sparse fits' shapes, D = 512 on the
+   wide (L2) route; each shape's route, cluster size and rows printed, two
+   calls bit-equal; cuDNN's LSTM timed beside it where it computes the same
+   function, Normal without resets), the LSTM backward (K2, the same checks,
+   cuDNN's forward + backward beside the port's tower step at fit-bench's
+   shape) and its dW_h reduction (3xTF32 on the tensor cores: two
    calls bit-equal, one device launch a call, device time beside torch.mm's;
    zeros at T=1), the score + group-max kernels (K3 and the FP32 K4), the
    3xTF32 K4 (each maximum within the certificate's eps of the plain one and
@@ -145,11 +150,12 @@ G_FLOOR = 1e-5
 G_FLOOR_SPARSE = 1e-4
 
 # (T, B, D, variants) of K2's checks: the ml1m fit, the bench.py fit, an odd
-# D whose w_h (Normal) is beyond a block's shared memory, and the
-# fit-10M-sparse fit (T=64, D=127 Coupled: G*D = 381, not a multiple of 4).
+# D whose w_h (Normal) is beyond a block's shared memory (a cluster of two
+# CTAs holds it), the fit-10M-sparse fit (T=64, D=127 Coupled: G*D = 381, not
+# a multiple of 4), and D = 512, past what a cluster holds (the L2 route).
 K2_SHAPES = [
     (128, 256, 128, (True, False)), (32, 256, 32, (False, True)), (32, 4096, 127, (False,)),
-    (64, 256, 127, (True,)),
+    (64, 256, 127, (True,)), (16, 24, 512, (True, False)),
 ]
 K2_TIMED = (128, 256, 128, True, True)  # the ml1m fit's call: Coupled, packed
 BENCH_REPEATS = 5  # continued bench.py-config fits timed, for their spread
@@ -333,31 +339,109 @@ def main() -> None:
             )
 
     # -- phase 3: kernels against their plain versions ----------------------------
-    print(f"phase 3 K1 lstm_fwd: U={USERS} T={SEQ_LEN} D={DIM}", flush=True)
-    for coupled in (False, True):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def geometry(b, d, coupled, backward=False):
+        cluster, rows, threads, smem, route = lk.recurrence_geometry(b, d, 3 if coupled else 4, sms,
+                                                                     backward=backward)
+        return f"route {route}, cluster {cluster}, {rows} rows, {threads} threads, {smem} B"
+
+    def check_k1(label, xz, w_h, keep, coupled):
+        """K1 against its plain version, and two calls bit-equal."""
+        h, c = lk.lstm_fwd(xz, w_h, keep, coupled)
+        h2, c2 = lk.lstm_fwd(xz, w_h, keep, coupled)
+        if not (torch.equal(h, h2) and torch.equal(c, c2)):
+            raise SmokeFailure(f"K1 ({label}): two calls differ")
+        hp, cp = lk.lstm_fwd_plain(xz, w_h, keep, coupled)
+        print(f"  K1 {label}: {geometry(xz.shape[1], w_h.shape[0], coupled)}; two calls bit-equal", flush=True)
+        return max(compare(f"hidden ({label})", h, hp, TOL_LSTM), compare(f"cell ({label})", c, cp, TOL_LSTM))
+
+    def k1_inputs(t_len, b, d, coupled):
         gates = 3 if coupled else 4
-        xz = torch.randn((SEQ_LEN, USERS, gates * DIM), device=dev, generator=gen)
-        w_h = torch.randn((DIM, gates * DIM), device=dev, generator=gen) * DIM**-0.5
-        starts = torch.rand((SEQ_LEN, USERS, 1), device=dev, generator=gen) < 0.1
+        xz = torch.randn((t_len, b, gates * d), device=dev, generator=gen)
+        w_h = torch.randn((d, gates * d), device=dev, generator=gen) * d**-0.5
+        starts = torch.rand((t_len, b, 1), device=dev, generator=gen) < 0.1
+        return xz, w_h, starts
+
+    def k1_work(xz, w_h, keep):
+        t_len, b, gd = xz.shape
+        return 2.0 * t_len * b * w_h.shape[0] * gd, nbytes(xz, w_h, keep) + 2 * 4 * t_len * b * w_h.shape[0]
+
+    def fp32_bound_ms(work):
+        flops, moved = work
+        return max(flops / PEAK_FP32_FLOPS, moved / PEAK_HBM_BYTES) * 1e3
+
+    print(f"phase 3 K1 lstm_fwd: U={USERS} T={SEQ_LEN} D={DIM} (the serving shape)", flush=True)
+    for coupled in (False, True):
+        xz, w_h, starts = k1_inputs(SEQ_LEN, USERS, DIM, coupled)
         for keep in (torch.ones_like(starts, dtype=torch.float32), (~starts).float()):
             label = f"{'coupled' if coupled else 'normal'}, {'starts' if keep.min() == 0 else 'no starts'}"
-            h, c = lk.lstm_fwd(xz, w_h, keep, coupled)
-            hp, cp = lk.lstm_fwd_plain(xz, w_h, keep, coupled)
-            err = max(
-                compare(f"hidden ({label})", h, hp, TOL_LSTM),
-                compare(f"cell ({label})", c, cp, TOL_LSTM),
-            )
+            err = check_k1(label, xz, w_h, keep, coupled)
+            record("lstm_fwd", err)
             if not coupled and keep.min() == 1:  # the serving path's call
                 ms = time_ms(lambda: lk.lstm_fwd(xz, w_h, keep, coupled))
                 plain_ms = time_ms(lambda: lk.lstm_fwd_plain(xz, w_h, keep, coupled))
-                print(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-                t_len, b_rows, gdim = xz.shape
-                record("lstm_fwd", err, ms, plain_ms, work=(
-                    2.0 * t_len * b_rows * DIM * gdim, nbytes(xz, w_h, keep, h, c),
-                ))
-            else:
-                record("lstm_fwd", err)
-    del xz, w_h, starts, keep, h, c, hp, cp
+                print(f"  time at the serving shape: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; FP32 bound "
+                      f"{fp32_bound_ms(k1_work(xz, w_h, keep)):.3f} ms", flush=True)
+    # The library yardstick where one call computes the same function: cuDNN's
+    # LSTM (Normal gate order, no resets, its own input projection) against
+    # the port's projection + K1, in full FP32 (cuDNN's TF32 flag off for it).
+    x = torch.randn((USERS, SEQ_LEN, DIM), device=dev, generator=gen)
+    params = {
+        "w_x": torch.randn((DIM, 4 * DIM), device=dev, generator=gen) * DIM**-0.5,
+        "w_h": torch.randn((DIM, 4 * DIM), device=dev, generator=gen) * DIM**-0.5,
+        "b": torch.randn((4 * DIM,), device=dev, generator=gen) * 0.1,
+    }
+
+    def cudnn_lstm(p, d):
+        lstm_mod = torch.nn.LSTM(d, d, batch_first=True).to(dev)
+        with torch.no_grad():
+            lstm_mod.weight_ih_l0.copy_(p["w_x"].T)
+            lstm_mod.weight_hh_l0.copy_(p["w_h"].T)
+            lstm_mod.bias_ih_l0.copy_(p["b"])
+            lstm_mod.bias_hh_l0.zero_()
+        return lstm_mod
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib = cudnn_lstm(params, DIM)
+        with torch.no_grad():
+            ours_out = lk.lstm_apply_kernel(params, x, False)
+            lib_out = lib(x)[0]
+            lib_err = float((ours_out - lib_out).abs().max())
+            ours_ms = time_ms(lambda: lk.lstm_apply_kernel(params, x, False))
+            lib_fwd_ms = time_ms(lambda: lib(x))
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    print(f"  library: torch.nn.LSTM (cuDNN, FP32) at the serving shape, Normal, no starts: {lib_fwd_ms:.3f} ms "
+          f"against projection + K1 {ours_ms:.3f} ms ({lib_fwd_ms / ours_ms:.2f}x the port's time); outputs "
+          f"differ by at most {lib_err:.3e}", flush=True)
+    if not lib_err <= 1e-3:
+        raise SmokeFailure(f"cuDNN's LSTM is not the same function here: max diff {lib_err:.3e}")
+    del x, params, lib, ours_out, lib_out
+    # The training shapes: ml1m (the JSON line's time: where K1 costs the most)
+    # and fit-10M-sparse; then the wide (L2) route at D = 512.
+    for t_len, b, d, timed in ((128, 256, 128, True), (64, 256, 127, False)):
+        xz, w_h, starts = k1_inputs(t_len, b, d, True)
+        keep = (~starts).float()
+        label = f"T={t_len} B={b} D={d} coupled, starts"
+        err = check_k1(label, xz, w_h, keep, True)
+        ms = time_ms(lambda: lk.lstm_fwd(xz, w_h, keep, True))
+        plain_ms = time_ms(lambda: lk.lstm_fwd_plain(xz, w_h, keep, True))
+        print(f"  time ({label}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; FP32 bound "
+              f"{fp32_bound_ms(k1_work(xz, w_h, keep)):.3f} ms", flush=True)
+        if timed:
+            record("lstm_fwd", err, ms, plain_ms, work=k1_work(xz, w_h, keep))
+        else:
+            record("lstm_fwd", err)
+    for coupled in (False, True):
+        xz, w_h, starts = k1_inputs(16, 24, 512, coupled)
+        if lk.recurrence_geometry(24, 512, 3 if coupled else 4, sms)[4] != "l2":
+            raise SmokeFailure("K1 at D=512 does not take the L2 route")
+        record("lstm_fwd", check_k1(f"T=16 B=24 D=512 {'coupled' if coupled else 'normal'}, starts (wide route)",
+                                    xz, w_h, (~starts).float(), coupled))
+    del xz, w_h, starts, keep
 
     def compare_rel(name, got, want, tol):
         """Largest error relative to max|want|; returns the absolute one."""
@@ -383,12 +467,20 @@ def main() -> None:
                     f"{'starts' if with_starts else 'no starts'}"
                 )
                 h, c = lk.lstm_fwd(xz, w_h, keep, coupled)
+                h2, c2 = lk.lstm_fwd(xz, w_h, keep, coupled)
+                if not (torch.equal(h, h2) and torch.equal(c, c2)):
+                    raise SmokeFailure(f"K1 ({label}): two calls differ")
                 hp, cp = lk.lstm_fwd_plain(xz, w_h, keep, coupled)
                 record("lstm_fwd", max(
                     compare(f"K1 hidden ({label})", h, hp, TOL_LSTM, quiet=True),
                     compare(f"K1 cell ({label})", c, cp, TOL_LSTM, quiet=True),
                 ))
                 dxz, dwh = lk.lstm_bwd(xz, w_h, h, c, g, keep, coupled)
+                dxz2, dwh2 = lk.lstm_bwd(xz, w_h, h, c, g, keep, coupled)
+                if not (torch.equal(dxz, dxz2) and torch.equal(dwh, dwh2)):
+                    raise SmokeFailure(f"K2 ({label}): two calls differ")
+                print(f"  K2 {label}: {geometry(b, d, coupled, backward=True)}; two calls bit-equal (K1 too)",
+                      flush=True)
                 pdxz, pdwh = lk.lstm_bwd_plain(xz, w_h, h, c, g, keep, coupled)
                 err = compare(f"K2 dxz ({label})", dxz, pdxz, TOL_DXZ)
                 err_w = compare_rel(f"K2 dW_h ({label})", dwh, pdwh, TOL_DWH)
@@ -408,8 +500,12 @@ def main() -> None:
                 red_ms = device_ms(lambda: lk.lstm_bwd_dwh(h, keep, dxz))
                 red_plain_ms = device_ms(lambda: lk.lstm_bwd_dwh_plain(h, keep, dxz))
                 fwd_ms = time_ms(lambda: lk.lstm_fwd(xz, w_h, keep, coupled))
+                # The recurrence's own bound: the recomputed gates and dh, two
+                # [T*B, D] x [D, G*D]-sized products (dW_h is the next kernel's).
+                rec_work = (4.0 * t_len * b * gates * d * d, nbytes(xz, w_h, h, c, g, keep, dxz))
                 print(
-                    f"  time: K2 {ms:.3f} ms (plain {plain_ms:.3f}), K1 at this shape {fwd_ms:.3f} ms; "
+                    f"  time: K2 {ms:.3f} ms (plain {plain_ms:.3f}; FP32 bound of the recurrence "
+                    f"{fp32_bound_ms(rec_work):.3f}), K1 at this shape {fwd_ms:.3f} ms; "
                     f"dW_h reduction {red_ms:.4f} ms device time (plain {red_plain_ms:.4f})",
                     flush=True,
                 )
@@ -441,7 +537,43 @@ def main() -> None:
     if zero.shape != (128, 384) or bool(zero.any()):
         raise SmokeFailure("dW_h at T=1 is not zeros")
     print("  dW_h at T=1: zeros", flush=True)
-    del xz, w_h, g, starts, keep, h, c, hp, cp, dxz, dwh, pdxz, pdwh, h_prev, dz, red, red_again, h1, zero
+    del xz, w_h, g, starts, keep, h, c, h2, c2, hp, cp, dxz, dwh, dxz2, dwh2, pdxz, pdwh, h_prev, dz, red, red_again
+    del h1, zero
+    # The library yardstick for a whole tower's step at fit-bench's shape (T=32,
+    # B=256, D=32 Normal, no starts): cuDNN's LSTM forward + backward against
+    # the port's projection + K1, then K2 + dW_h + the projection's autograd.
+    tb, tt, td = 256, 32, 32
+    x = torch.randn((tb, tt, td), device=dev, generator=gen, requires_grad=True)
+    params = {
+        "w_x": (torch.randn((td, 4 * td), device=dev, generator=gen) * td**-0.5).requires_grad_(),
+        "w_h": (torch.randn((td, 4 * td), device=dev, generator=gen) * td**-0.5).requires_grad_(),
+        "b": (torch.randn((4 * td,), device=dev, generator=gen) * 0.1).requires_grad_(),
+    }
+    g_out = torch.randn((tb, tt, td), device=dev, generator=gen)
+
+    def port_step():
+        lk.lstm_apply_kernel(params, x, False).backward(g_out)
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib = cudnn_lstm({k: v.detach() for k, v in params.items()}, td)
+        port_step()
+        ours_dx = x.grad.clone()
+        x.grad = None
+        lib(x)[0].backward(g_out)
+        lib_err = float((ours_dx - x.grad).abs().max())
+        ours_ms = time_ms(port_step)
+        lib_ms = time_ms(lambda: lib(x)[0].backward(g_out))
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    print(f"  library: torch.nn.LSTM (cuDNN, FP32) forward + backward at fit-bench's tower (T={tt} B={tb} D={td} "
+          f"Normal, no starts): {lib_ms:.3f} ms against the port's projection + K1 + K2 + dW_h + autograd "
+          f"{ours_ms:.3f} ms ({lib_ms / ours_ms:.2f}x the port's time); dx differs by at most {lib_err:.3e}",
+          flush=True)
+    if not lib_err <= 1e-3:
+        raise SmokeFailure(f"cuDNN's LSTM backward is not the same function here: max diff {lib_err:.3e}")
+    del x, params, g_out, lib, ours_dx
     torch.cuda.empty_cache()
 
     def check_k3(label, rows, reps, lo, n, group, timed):

@@ -20,9 +20,11 @@
 // What bounds it on the H100: like the forward, a chain of T dependent
 // steps, here with two small products per step (the recomputed
 // [rows, D] x [D, G*D] and [rows, G*D] x [G*D, D] for dh). At the training
-// shapes (B = 256) there are few batch rows to spread over 132 SMs, and each
-// step's latency (w_h reads from L2, two barriers) bounds it, not HBM: xz,
-// hidden, cell and g are read once, dxz written once. dW_h is a plain
+// shapes (B = 256) there are two batch rows per SM, and a step that
+// re-reads w_h from L2 twice is latency-bound (1.9 % of the bound). With
+// w_h on chip the floor of a step is reading it from shared memory twice
+// (D = 128 Coupled: 2 x 196,608 B at 128 B/clk, ~3,072 clk); HBM is not:
+// xz, hidden, cell and g are read once, dxz written once. dW_h is a plain
 // reduction over T*B rows, 2 * D * G*D * T*B FLOP, small for the card: at
 // the ml1m shape (M = 32,512 rows, D = 128, G*D = 384) its 67 MB of
 // operands take 0.020 ms at 3.35 TB/s and its 3xTF32 products 0.019 ms at
@@ -31,9 +33,7 @@
 // Design:
 // * The TPU kernel carries dW_h in VMEM scratch across a sequential grid.
 //   Blocks here run in no order, so the work splits in two kernels:
-//   (a) the recurrence: a block owns R batch rows and walks all T steps
-//       itself, writing dxz (an output anyway). R is 2, 4 or 8, chosen from
-//       B so that even B = 256 gives 128 blocks;
+//   (a) the recurrence, which writes dxz (an output anyway);
 //   (b) the dW_h reduction, dW_h[k, c] = sum_m A[m, k] * dxz[m + B, c] with
 //       A[m] = hidden[m] * keep[m + B] over the m < (T-1)*B rows of t >= 1,
 //       on the tensor cores in 3xTF32 (tf32x3.cuh) with wgmma.m64n128k8:
@@ -56,26 +56,41 @@
 //       tile sums the partials in split order, so the result is the same
 //       bits run after run and takes one launch. The last block resets its
 //       ticket, so the wrapper's ticket buffer stays zero between calls.
-// * w_h does not fit in shared memory at the training widths (D = 128
-//   Normal: 262,144 B; D = 127 Normal: 258,064 B; the limit is 232,448 B),
-//   so it stays in global memory, L2-resident, as in the forward. Thread j
-//   owns hidden unit j: the recompute reads row k of w_h at column g*D + j,
-//   and dh reads w_h^T [G*D, D] (a contiguous transposed copy made by the
-//   wrapper) at row c, column j, so both loads coalesce across the warp.
-// * Shared memory holds h_prev of the block's rows (broadcast reads in the
-//   recompute) and their dz (broadcast reads for dh); two barriers a step.
-// * hidden[t-1] and cell[t-1] are read only for t > 0, never index -1.
-// * The recurrence makes no vector loads: D may be odd (rows of 127 floats
-//   are not 16-byte aligned). f32 throughout with expf/tanhf; sums over k
-//   in the forward's order, so the recomputed gates match the forward
-//   kernel's.
+// * The recurrence keeps w_h resident in shared memory, FP32, loaded once
+//   per call, in the layout of lstm_step.cuh (row stride 1 mod 32): the
+//   recomputed gates read row k at column g*Dc + j, dh reads row j at
+//   column c, both without bank conflicts, from the same copy (no
+//   transposed copy of w_h). Where one CTA cannot hold w_h (D = 127 Normal),
+//   a cluster of C CTAs splits it by unit: each CTA has the dz of its own
+//   units' columns, so it forms a partial dh over those columns for every
+//   unit and writes each into its owner's slot (distributed shared memory);
+//   after the step's cluster barrier the owner adds the C partials in rank
+//   order, so the sum is the same bits run after run. The slots alternate
+//   by step parity, so one cluster barrier a step orders them; the last
+//   step's barrier is the last before any CTA exits.
+// * The step's inputs are copied a step ahead by cp.async (4 bytes: D may
+//   be odd): each thread its own xz, cell, g of step t-1 and cell of t-2,
+//   and its rows' share of hidden[t-2], which it scales by keep[t-1] once
+//   it has landed (before the step's last barrier), so the gates read h_prev
+//   from shared memory as K1 reads h.
+// * The gate product is lstm_step.cuh gate_product, K1's own, so the
+//   recomputed gates match the forward kernel's bit for bit. No atomics:
+//   two calls give the same bits.
+// * Wide route: past what a cluster of 8 holds, recurrence_geometry picks
+//   the L2 kernel below (w_h read from global memory, L2-resident); its dh
+//   has each warp take whole rows of w_h (coalesced), its lanes' partials
+//   added by a butterfly, so it needs no transposed copy either.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "lstm_step.cuh"
 #include "tf32x3.cuh"
 
 namespace {
+
+using lstm_step::round_up;
+using lstm_step::sigmoid_f32;
 
 constexpr int kDwhTileK = 64;    // dW_h rows (hidden units k) per block: wgmma's M
 constexpr int kDwhTileC = 128;   // dW_h columns (gate units c) per block: wgmma's N
@@ -96,30 +111,257 @@ constexpr int kDwhBBytes = 2 * kDwhHalfB;
 constexpr int kDwhSmem = kDwhStages * kDwhRingBytes + 2 * kDwhBBytes;
 constexpr int kDwhXStride = kDwhTileC + 4;  // the warpgroups' exchange tile
 
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// One row and unit of the adjoint step: z = xz + the recomputed product,
+// tc = tanh(cell[t]), dh_tot = g[t] + dh, c_prev = c[t-1] * factor. Writes
+// dz and returns dc' (before the factor).
+template <int G>
+__device__ __forceinline__ float adjoint(const float* z, float tc, float dh_tot, float dc,
+                                         float c_prev, float* dz) {
+  if constexpr (G == 3) {
+    const float i = sigmoid_f32(z[0]);
+    const float gg = tanhf(z[1]);
+    const float o = sigmoid_f32(z[2]);
+    const float dc_tot = dc + dh_tot * o * (1.0f - tc * tc);
+    dz[0] = dc_tot * (gg - c_prev) * i * (1.0f - i);
+    dz[1] = dc_tot * i * (1.0f - gg * gg);
+    dz[2] = dh_tot * tc * o * (1.0f - o);
+    return dc_tot * (1.0f - i);
+  } else {
+    const float i = sigmoid_f32(z[0]);
+    const float f = sigmoid_f32(z[1]);
+    const float gg = tanhf(z[2]);
+    const float o = sigmoid_f32(z[3]);
+    const float dc_tot = dc + dh_tot * o * (1.0f - tc * tc);
+    dz[0] = dc_tot * gg * i * (1.0f - i);
+    dz[1] = dc_tot * c_prev * f * (1.0f - f);
+    dz[2] = dc_tot * i * (1.0f - gg * gg);
+    dz[3] = dh_tot * tc * o * (1.0f - o);
+    return dc_tot * f;
+  }
 }
 
+// a[i] = sum over c < n of dz[i * dz_stride + c] * w_row[c], in c order, one
+// fmaf a term; dz rows 16-byte aligned, read as broadcasts four at a time.
+template <int RT>
+__device__ __forceinline__ void dz_product(const float* __restrict__ dz, int dz_stride, int n,
+                                           const float* __restrict__ w_row, float (&a)[RT]) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i) a[i] = 0.0f;
+  int c = 0;
+#pragma unroll 2
+  for (; c + 4 <= n; c += 4) {
+    float v[RT][4];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(dz + i * dz_stride + c);
+      v[i][0] = x.x;
+      v[i][1] = x.y;
+      v[i][2] = x.z;
+      v[i][3] = x.w;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const float w = w_row[c + cc];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) a[i] = fmaf(v[i][cc], w, a[i]);
+    }
+  }
+  for (; c < n; ++c) {
+    const float w = w_row[c];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) a[i] = fmaf(dz[i * dz_stride + c], w, a[i]);
+  }
+}
+
+// Shared memory (floats): w_s [round4(D*S)] | h_prev [2][R][Dp4] | dz
+// [R][round4(G*Dc)] | dh partials [2][C][R][Dcp] (C > 1 only) | the
+// threads' input slots [2][G+3][R][Dcp] (xz gates, cell[t], g[t], cell[t-1]).
+template <int G, int RT>
+__global__ void __launch_bounds__(lstm_step::max_threads(RT), 1) lstm_bwd_smem_kernel(
+    const float* __restrict__ xz, const float* __restrict__ w_h, const float* __restrict__ hidden,
+    const float* __restrict__ cell, const float* __restrict__ g_in, const float* __restrict__ keep,
+    float* __restrict__ dxz, int T, int B, int D, int C, int R) {
+  constexpr int F = G + 3;
+  extern __shared__ __align__(16) float smem[];
+  const int dc = lstm_step::units_per_cta(D, C);
+  const int dcp = round_up(dc, 32);
+  const int gdc = G * dc;
+  const int gdc4 = round_up(gdc, 4);
+  const int S = lstm_step::w_stride(gdc);
+  const int dp4 = round_up(D, 4);
+  float* w_s = smem;
+  float* hb = w_s + round_up(D * S, 4);
+  float* dz_s = hb + 2 * R * dp4;
+  float* pdh = dz_s + R * gdc4;
+  float* pp = pdh + (C > 1 ? 2 * C * R * dcp : 0);
+
+  const int j = threadIdx.x % dcp;
+  const int r0 = (threadIdx.x / dcp) * RT;
+  const int q = blockIdx.x % C;
+  const int b0 = (blockIdx.x / C) * R;
+  const int u = q * dc + j;
+  const bool active = j < dc && u < D;
+  const size_t gd = static_cast<size_t>(G) * D;
+  const int field = R * dcp;  // floats between two fields of a slot
+
+  // Step s's inputs into slot s & 1: this thread's rows of hidden[s-1] at
+  // k = j, j + dcp, ..., and its own xz, cell, g of step s and cell[s-1].
+  auto prefetch = [&](int s) {
+    const int sl = s & 1;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int b = b0 + r0 + i;
+      const bool okh = b < B && s > 0;
+      const float* hsrc = okh ? hidden + (static_cast<size_t>(s - 1) * B + b) * D : hidden;
+      for (int k = j; k < D; k += dcp)
+        tf32x3::cp_async4(hb + (sl * R + r0 + i) * dp4 + k, hsrc + (okh ? k : 0), okh);
+      const bool ok = active && b < B;
+      const size_t row = ok ? static_cast<size_t>(s) * B + b : 0;
+      float* slot = pp + sl * F * field + (r0 + i) * dcp + j;
+#pragma unroll
+      for (int g = 0; g < G; ++g) tf32x3::cp_async4(slot + g * field, xz + row * gd + g * D + (ok ? u : 0), ok);
+      tf32x3::cp_async4(slot + G * field, cell + row * D + (ok ? u : 0), ok);
+      tf32x3::cp_async4(slot + (G + 1) * field, g_in + row * D + (ok ? u : 0), ok);
+      const bool okp = ok && s > 0;
+      tf32x3::cp_async4(slot + (G + 2) * field,
+                           okp ? cell + (static_cast<size_t>(s - 1) * B + b) * D + u : cell, okp);
+    }
+  };
+  // factor(s) = keep[s] * (s > 0) of this thread's rows.
+  auto factors = [&](int s, float (&f)[RT]) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int b = b0 + r0 + i;
+      f[i] = s > 0 && b < B ? __ldg(keep + static_cast<size_t>(s) * B + b) : 0.0f;
+    }
+  };
+  // This thread's copied h_prev values of step s, times factor(s).
+  auto scale = [&](int s, const float (&f)[RT]) {
+    const int sl = s & 1;
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      for (int k = j; k < D; k += dcp) hb[(sl * R + r0 + i) * dp4 + k] *= f[i];
+  };
+
+  lstm_step::load_w_slice<G>(w_s, w_h, D, dc, S, q);
+  for (int e = threadIdx.x; e < 2 * R * dp4; e += blockDim.x) hb[e] = 0.0f;
+  __syncthreads();  // the zeros land before any copy into the same words
+  float f[RT], dh[RT], dcar[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    dh[i] = 0.0f;
+    dcar[i] = 0.0f;
+  }
+  prefetch(T - 1);
+  tf32x3::cp_async_commit();
+  factors(T - 1, f);
+  tf32x3::cp_async_wait<0>();
+  scale(T - 1, f);
+  // w_s and step T-1's h_prev complete; every CTA of the cluster started.
+  lstm_step::step_sync(C);
+
+  for (int s = T - 1; s >= 0; --s) {
+    const int cur = s & 1;
+    float fn[RT];
+    if (s > 0) {
+      prefetch(s - 1);
+      factors(s - 1, fn);
+    }
+    tf32x3::cp_async_commit();
+
+    float acc[G][RT];
+    lstm_step::gate_product<G, RT>(w_s, S, dc, hb + (cur * R + r0) * dp4, dp4, D, j, acc);
+
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int b = b0 + r0 + i;
+      float dz[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) dz[g] = 0.0f;
+      if (active && b < B) {
+        const float* slot = pp + cur * F * field + (r0 + i) * dcp + j;
+        float z[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) z[g] = slot[g * field] + acc[g][i];
+        const float tc = tanhf(slot[G * field]);
+        const float dh_tot = slot[(G + 1) * field] + dh[i];
+        const float c_prev = slot[(G + 2) * field] * f[i];
+        dcar[i] = adjoint<G>(z, tc, dh_tot, dcar[i], c_prev, dz) * f[i];
+        const size_t row = static_cast<size_t>(s) * B + b;
+#pragma unroll
+        for (int g = 0; g < G; ++g) dxz[row * gd + g * D + u] = dz[g];
+      }
+      if (j < dc) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) dz_s[(r0 + i) * gdc4 + g * dc + j] = dz[g];
+      }
+    }
+    __syncthreads();  // the CTA's dz complete
+
+    // dh for step s-1: (dz @ w_h^T) * factor(s), over this CTA's columns.
+    if (s > 0) {
+      float a[RT];
+      if (C == 1) {
+        if (active) {
+          dz_product<RT>(dz_s + r0 * gdc4, gdc4, gdc, w_s + u * S, a);
+#pragma unroll
+          for (int i = 0; i < RT; ++i) dh[i] = a[i] * f[i];
+        }
+      } else if (j < dc) {
+        for (int p = 0; p < C; ++p) {
+          const int k = p * dc + j;
+          if (k >= D) break;
+          dz_product<RT>(dz_s + r0 * gdc4, gdc4, gdc, w_s + k * S, a);
+          float* mine = pdh + ((cur * C + q) * R + r0) * dcp + j;  // owner p's slot for rank q
+#pragma unroll
+          for (int i = 0; i < RT; ++i) lstm_step::st_cluster(lstm_step::cluster_addr(mine + i * dcp, p), a[i]);
+        }
+      }
+    }
+    tf32x3::cp_async_wait<0>();
+    if (s > 0) scale(s - 1, fn);
+    // h_prev of step s-1 and the dh partials in place; dz and h_prev of
+    // step s read by all.
+    lstm_step::step_sync(C);
+    if (s > 0) {
+      if (C > 1 && active) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          float sum = 0.0f;
+          for (int p = 0; p < C; ++p) sum += pdh[((cur * C + p) * R + r0 + i) * dcp + j];
+          dh[i] = sum * f[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i) f[i] = fn[i];
+    }
+  }
+}
+
+// The wide route: w_h in global memory (L2-resident), R rows a block,
+// thread j owns unit j. Shared memory: h_prev [R][D], dz [R][G*D], dh [R][D].
 template <int G, int R>
-__global__ void lstm_bwd_recurrence_kernel(
-    const float* __restrict__ xz, const float* __restrict__ w_h,
-    const float* __restrict__ w_hT, const float* __restrict__ hidden,
-    const float* __restrict__ cell, const float* __restrict__ g_in,
-    const float* __restrict__ keep, float* __restrict__ dxz, int T, int B,
-    int D) {
-  extern __shared__ float smem[];
-  float* h_s = smem;           // [R][D]: h_prev of the block's rows
-  float* dz_s = smem + R * D;  // [R][G*D]: dz of the step
+__global__ void lstm_bwd_l2_kernel(const float* __restrict__ xz, const float* __restrict__ w_h,
+                                   const float* __restrict__ hidden, const float* __restrict__ cell,
+                                   const float* __restrict__ g_in, const float* __restrict__ keep,
+                                   float* __restrict__ dxz, int T, int B, int D) {
+  extern __shared__ float l2_smem[];
+  const int gd = G * D;
+  float* h_s = l2_smem;
+  float* dz_s = h_s + R * D;
+  float* dh_s = dz_s + R * gd;
   const int j = threadIdx.x;
+  const int lane = j % 32;
+  const int warp = j / 32;
+  const int warps = blockDim.x / 32;
   const bool active = j < D;
   const int b0 = blockIdx.x * R;
-  const int gd = G * D;
 
-  float dh[R], dc[R];
+  float dh[R], dcar[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     dh[r] = 0.0f;
-    dc[r] = 0.0f;
+    dcar[r] = 0.0f;
   }
 
   for (int t = T - 1; t >= 0; --t) {
@@ -140,7 +382,7 @@ __global__ void lstm_bwd_recurrence_kernel(
       c_prev[r] = cp;
       if (active) h_s[r * D + j] = hp;
     }
-    __syncthreads();  // h_prev complete; dz_s of the last step fully read
+    __syncthreads();  // h_prev complete; dz_s and dh_s of the last step read
 
     float acc[G][R];
 #pragma unroll
@@ -152,8 +394,7 @@ __global__ void lstm_bwd_recurrence_kernel(
       for (int k = 0; k < D; ++k) {
         float w[G];
 #pragma unroll
-        for (int g = 0; g < G; ++g)
-          w[g] = __ldg(w_h + static_cast<size_t>(k) * gd + g * D + j);
+        for (int g = 0; g < G; ++g) w[g] = __ldg(w_h + static_cast<size_t>(k) * gd + g * D + j);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float hk = h_s[r * D + k];
@@ -161,7 +402,6 @@ __global__ void lstm_bwd_recurrence_kernel(
           for (int g = 0; g < G; ++g) acc[g][r] = fmaf(hk, w[g], acc[g][r]);
         }
       }
-
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int b = b0 + r;
@@ -170,32 +410,12 @@ __global__ void lstm_bwd_recurrence_kernel(
         for (int g = 0; g < G; ++g) dz[g] = 0.0f;
         if (b < B) {
           const size_t row = static_cast<size_t>(t) * B + b;
-          const float* z = xz + row * gd + j;
+          float z[G];
+#pragma unroll
+          for (int g = 0; g < G; ++g) z[g] = xz[row * gd + g * D + j] + acc[g][r];
           const float tc = tanhf(cell[row * D + j]);
           const float dh_tot = g_in[row * D + j] + dh[r];
-          float dc_prev;
-          if constexpr (G == 3) {
-            const float i = sigmoid_f32(z[0] + acc[0][r]);
-            const float gg = tanhf(z[D] + acc[1][r]);
-            const float o = sigmoid_f32(z[2 * D] + acc[2][r]);
-            const float dc_tot = dc[r] + dh_tot * o * (1.0f - tc * tc);
-            dz[0] = dc_tot * (gg - c_prev[r]) * i * (1.0f - i);
-            dz[1] = dc_tot * i * (1.0f - gg * gg);
-            dz[2] = dh_tot * tc * o * (1.0f - o);
-            dc_prev = dc_tot * (1.0f - i);
-          } else {
-            const float i = sigmoid_f32(z[0] + acc[0][r]);
-            const float f = sigmoid_f32(z[D] + acc[1][r]);
-            const float gg = tanhf(z[2 * D] + acc[2][r]);
-            const float o = sigmoid_f32(z[3 * D] + acc[3][r]);
-            const float dc_tot = dc[r] + dh_tot * o * (1.0f - tc * tc);
-            dz[0] = dc_tot * gg * i * (1.0f - i);
-            dz[1] = dc_tot * c_prev[r] * f * (1.0f - f);
-            dz[2] = dc_tot * i * (1.0f - gg * gg);
-            dz[3] = dh_tot * tc * o * (1.0f - o);
-            dc_prev = dc_tot * f;
-          }
-          dc[r] = dc_prev * factor[r];
+          dcar[r] = adjoint<G>(z, tc, dh_tot, dcar[r], c_prev[r], dz) * factor[r];
 #pragma unroll
           for (int g = 0; g < G; ++g) dxz[row * gd + g * D + j] = dz[g];
         }
@@ -205,20 +425,31 @@ __global__ void lstm_bwd_recurrence_kernel(
     }
     __syncthreads();  // dz of every unit in shared memory
 
-    // dh for step t-1: (dz @ w_h^T)[j] * factor. The next step's first
-    // barrier keeps dz_s until every thread is done reading it.
-    if (active) {
+    // dh for step t-1: warp w takes units k = w, w + warps, ...; its lanes
+    // read row k of w_h (coalesced) over c = lane, lane + 32, ..., and a
+    // butterfly adds their sums (every lane ends with the same bits).
+    for (int k = warp; k < D; k += warps) {
       float a[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) a[r] = 0.0f;
-#pragma unroll 4
-      for (int c = 0; c < gd; ++c) {
-        const float w = __ldg(w_hT + static_cast<size_t>(c) * D + j);
+      for (int c = lane; c < gd; c += 32) {
+        const float w = __ldg(w_h + static_cast<size_t>(k) * gd + c);
 #pragma unroll
         for (int r = 0; r < R; ++r) a[r] = fmaf(dz_s[r * gd + c], w, a[r]);
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) dh[r] = a[r] * factor[r];
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2) a[r] += __shfl_xor_sync(0xffffffffu, a[r], off);
+      if (lane == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) dh_s[r * D + k] = a[r];
+      }
+    }
+    __syncthreads();  // dh of every unit in shared memory
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) dh[r] = dh_s[r * D + j] * factor[r];
     }
   }
 }
@@ -447,59 +678,86 @@ __global__ void __launch_bounds__(kDwhThreads, 1) lstm_bwd_dwh_kernel(
   if (tid == 0) tickets[tile] = 0u;  // ready for the next call
 }
 
+template <int G, int RT>
+cudaError_t launch_smem(const float* xz, const float* w_h, const float* hidden, const float* cell,
+                        const float* g, const float* keep, float* dxz, int T, int B, int D,
+                        int cluster, int rows, int threads, size_t smem, cudaStream_t stream) {
+  const int ctas = cluster * ((B + rows - 1) / rows);
+  return lstm_step::launch_clustered(lstm_bwd_smem_kernel<G, RT>, ctas, cluster, threads, smem,
+                                     stream, xz, w_h, hidden, cell, g, keep, dxz, T, B, D, cluster,
+                                     rows);
+}
+
 template <int G, int R>
-cudaError_t launch_recurrence(const float* xz, const float* w_h,
-                              const float* w_hT, const float* hidden,
-                              const float* cell, const float* g,
-                              const float* keep, float* dxz, int T, int B,
-                              int D, cudaStream_t stream) {
-  const int threads = (D + 31) / 32 * 32;
-  const dim3 grid((B + R - 1) / R);
-  const size_t smem = sizeof(float) * R * D * (1 + G);
+cudaError_t launch_l2(const float* xz, const float* w_h, const float* hidden, const float* cell,
+                      const float* g, const float* keep, float* dxz, int T, int B, int D,
+                      int threads, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lstm_bwd_recurrence_kernel<G, R>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        lstm_bwd_l2_kernel<G, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  lstm_bwd_recurrence_kernel<G, R><<<grid, threads, smem, stream>>>(
-      xz, w_h, w_hT, hidden, cell, g, keep, dxz, T, B, D);
-  return cudaSuccess;
+  lstm_bwd_l2_kernel<G, R><<<(B + R - 1) / R, threads, smem, stream>>>(xz, w_h, hidden, cell, g,
+                                                                       keep, dxz, T, B, D);
+  return cudaGetLastError();
 }
 
 template <int G>
-cudaError_t launch_recurrence_rows(const float* xz, const float* w_h,
-                                   const float* w_hT, const float* hidden,
-                                   const float* cell, const float* g,
-                                   const float* keep, float* dxz, int T,
-                                   int B, int D, cudaStream_t stream) {
-  // Rows per block: as many as keep about two blocks per SM in flight.
-  if (B >= 8 * 264)
-    return launch_recurrence<G, 8>(xz, w_h, w_hT, hidden, cell, g, keep, dxz,
-                                   T, B, D, stream);
-  if (B >= 4 * 264)
-    return launch_recurrence<G, 4>(xz, w_h, w_hT, hidden, cell, g, keep, dxz,
-                                   T, B, D, stream);
-  return launch_recurrence<G, 2>(xz, w_h, w_hT, hidden, cell, g, keep, dxz, T,
-                                 B, D, stream);
+cudaError_t launch_recurrence(const float* xz, const float* w_h, const float* hidden,
+                              const float* cell, const float* g, const float* keep, float* dxz,
+                              int T, int B, int D, int cluster, int rows, int threads, size_t smem,
+                              int route_smem, cudaStream_t stream) {
+  if (!route_smem) {
+    if (cluster != 1 || threads != round_up(D, 32) ||
+        smem < sizeof(float) * rows * D * (G + 2))
+      return cudaErrorInvalidValue;
+    switch (rows) {
+      case 2: return launch_l2<G, 2>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, threads, smem, stream);
+      case 4: return launch_l2<G, 4>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, threads, smem, stream);
+      case 8: return launch_l2<G, 8>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, threads, smem, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  // The geometry recurrence_geometry gave: checked against this file's layout.
+  const int dc = lstm_step::units_per_cta(D, cluster);
+  const int dcp = round_up(dc, 32);
+  if (cluster < 1 || cluster > 8 || (cluster - 1) * dc >= D || threads % dcp != 0 ||
+      rows % (threads / dcp) != 0)
+    return cudaErrorInvalidValue;
+  const int rt = rows / (threads / dcp);
+  if (threads > lstm_step::max_threads(rt)) return cudaErrorInvalidValue;
+  const size_t need =
+      sizeof(float) * (round_up(D * lstm_step::w_stride(G * dc), 4) + 2 * rows * round_up(D, 4) +
+                       rows * round_up(G * dc, 4) + (cluster > 1 ? 2 * cluster * rows * dcp : 0) +
+                       2 * (G + 3) * rows * dcp);
+  if (smem < need) return cudaErrorInvalidValue;
+  switch (rt) {
+    case 1: return launch_smem<G, 1>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, cluster, rows, threads, smem, stream);
+    case 2: return launch_smem<G, 2>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, cluster, rows, threads, smem, stream);
+    case 4: return launch_smem<G, 4>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, cluster, rows, threads, smem, stream);
+    case 8: return launch_smem<G, 8>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, cluster, rows, threads, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// The recurrence: xz [T, B, G*D], w_h [D, G*D], w_hT [G*D, D], hidden, cell,
-// g [T, B, D], keep [T, B] -> dxz [T, B, G*D]; all f32, contiguous, on the
-// current device. G = 3 when coupled, else 4. D <= 1024.
-extern "C" int sbr_lstm_bwd_f32(const float* xz, const float* w_h,
-                                const float* w_hT, const float* hidden,
-                                const float* cell, const float* g,
-                                const float* keep, float* dxz, int T, int B,
-                                int D, int coupled, cudaStream_t stream) {
+// The recurrence: xz [T, B, G*D], w_h [D, G*D], hidden, cell, g [T, B, D],
+// keep [T, B] -> dxz [T, B, G*D]; all f32, contiguous, on the current
+// device. G = 3 when coupled, else 4. D <= 1024. cluster, rows, threads,
+// smem and route_smem (1: w_h resident, 0: the L2 route) as
+// ops/lstm_kernels.py recurrence_geometry(..., backward=True) gives them.
+extern "C" int sbr_lstm_bwd_f32(const float* xz, const float* w_h, const float* hidden,
+                                const float* cell, const float* g, const float* keep, float* dxz,
+                                int T, int B, int D, int coupled, int cluster, int rows,
+                                int threads, int smem, int route_smem, cudaStream_t stream) {
   if (T > 0 && B > 0 && D > 0) {
+    const size_t bytes = static_cast<size_t>(smem);
     const cudaError_t err =
-        coupled ? launch_recurrence_rows<3>(xz, w_h, w_hT, hidden, cell, g,
-                                            keep, dxz, T, B, D, stream)
-                : launch_recurrence_rows<4>(xz, w_h, w_hT, hidden, cell, g,
-                                            keep, dxz, T, B, D, stream);
+        coupled ? launch_recurrence<3>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, cluster,
+                                       rows, threads, bytes, route_smem, stream)
+                : launch_recurrence<4>(xz, w_h, hidden, cell, g, keep, dxz, T, B, D, cluster,
+                                       rows, threads, bytes, route_smem, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

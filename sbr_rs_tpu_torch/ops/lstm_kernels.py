@@ -20,7 +20,8 @@ version. There is no switch that turns a kernel off.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -70,11 +71,146 @@ def _require(x: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+SMEM_OPTIN = 232_448  # shared memory one block of sm_90 may opt in to, bytes
+_CLUSTERS = (1, 2, 4, 8)  # portable thread-block cluster sizes
+_L2_FWD_ROWS = 8  # rows a block of the forward's L2 route
+_MIN_THREADS = 128  # four warps: fewer leave a step's latency exposed
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def w_stride(gdc: int) -> int:
+    """Row stride, in floats, of the resident ``w_h`` slice with ``gdc`` gate
+    columns: the least value >= ``gdc`` that is 1 mod 32, so that reading a
+    row along its columns and reading a column down its rows are both free
+    of bank conflicts (``csrc/lstm_step.cuh``)."""
+    return _round_up(gdc - 1, 32) + 1
+
+
+def max_threads(rows_per_thread: int) -> int:
+    """Threads a CTA may have at ``rows_per_thread`` rows a thread: the
+    kernels' launch bounds (``lstm_step.cuh max_threads``)."""
+    return 256 if rows_per_thread >= 8 else 512
+
+
+def _smem_floats(d: int, gates: int, cluster: int, rows: int, backward: bool) -> int:
+    """Floats of dynamic shared memory the resident-``w_h`` kernels use, as
+    their layouts in ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu``: the
+    ``w_h`` slice, ``h`` (double-buffered), and the threads' input slots
+    (K2: also ``dz`` and, in a cluster, the ``dh`` partials)."""
+    dc = -(-d // cluster)
+    dcp = _round_up(dc, 32)
+    n = _round_up(d * w_stride(gates * dc), 4) + 2 * rows * _round_up(d, 4)
+    if not backward:
+        return n + 2 * gates * rows * dcp
+    n += rows * _round_up(gates * dc, 4) + 2 * (gates + 3) * rows * dcp
+    return n + (2 * cluster * rows * dcp if cluster > 1 else 0)
+
+
+def recurrence_candidates(
+    b: int, d: int, gates: int, sms: int, smem_limit: int = SMEM_OPTIN, backward: bool = False
+) -> List[Tuple[int, int, int, int]]:
+    """Every ``(cluster, rows, threads, smem_bytes)`` with ``w_h`` resident
+    in shared memory that fits ``smem_limit`` and the launch bounds, for
+    ``b`` batch rows, ``d`` hidden units and ``gates`` gates on ``sms`` SMs:
+    a cluster of 1, 2, 4 or 8 CTAs splits ``w_h`` by unit, each cluster
+    walks ``rows`` batch rows (at most as many as fill the SMs in one wave),
+    and a thread owns one unit of ``rows_per_thread`` (1, 2, 4 or 8) rows,
+    ``threads = round_up(ceil(d / cluster), 32) * row_groups``."""
+    b = max(b, 1)
+    out = []
+    for cluster in _CLUSTERS:
+        dc = -(-d // cluster)
+        if (cluster - 1) * dc >= d:  # a CTA would own no unit
+            break
+        dcp = _round_up(dc, 32)
+        target = -(-b // max(1, sms // cluster))  # rows per cluster for one wave
+        rt0 = min(8, 1 << (target - 1).bit_length())
+        for rt in (1, 2, 4, 8):
+            for groups in range(1, rt0 * -(-target // rt0) // rt + 1):
+                smem = 4 * _smem_floats(d, gates, cluster, rt * groups, backward)
+                if dcp * groups > max_threads(rt) or smem > smem_limit:
+                    break
+                out.append((cluster, rt * groups, dcp * groups, smem))
+    return out
+
+
+def rows_per_thread(d: int, cluster: int, rows: int, threads: int) -> int:
+    """Rows a thread owns in a resident-``w_h`` geometry."""
+    return rows * _round_up(-(-d // cluster), 32) // threads
+
+
+@functools.lru_cache(maxsize=1024)  # the wrappers ask at every call; a pick costs ~0.1 ms of Python
+def recurrence_geometry(
+    b: int, d: int, gates: int, sms: int, smem_limit: int = SMEM_OPTIN, backward: bool = False
+) -> Tuple[int, int, int, int, str]:
+    """``(cluster, rows, threads, smem_bytes, route)`` of K1
+    (``backward=False``) or K2's recurrence for ``b`` batch rows, ``d``
+    hidden units and ``gates`` gates on a card of ``sms`` SMs.
+
+    Route ``"smem"``: of :func:`recurrence_candidates`, the fewest CTAs a
+    cluster; then the most rows (the fewest waves); then at least four
+    warps, to hide the latency of each step's chains; then the most rows a
+    thread (each ``w_h`` value read feeds rows_per_thread x G FMAs). Route
+    ``"l2"``, where no cluster of 8 holds ``w_h`` (Normal ``d`` above ~330,
+    Coupled above ~380): ``w_h`` read from global memory (L2), one thread
+    per unit, ``cluster = 1``. Raises above ``d = 1024``."""
+    if not 0 < d <= 1024:
+        raise ValueError(f"the LSTM recurrence takes 0 < D <= 1024 (one thread per unit), got {d}")
+    fits = recurrence_candidates(b, d, gates, sms, smem_limit, backward)
+    if fits:
+        least = min(c for c, _, _, _ in fits)
+        _, _, _, cluster, rows, threads, smem = max(
+            (rows, min(threads, _MIN_THREADS), rows_per_thread(d, c, rows, threads), c, rows, threads, smem)
+            for c, rows, threads, smem in fits
+            if c == least
+        )
+        return cluster, rows, threads, smem, "smem"
+    threads = _round_up(d, 32)
+    if not backward:
+        return 1, _L2_FWD_ROWS, threads, 4 * _L2_FWD_ROWS * d, "l2"
+    rows = 8 if b >= 16 * sms else 4 if b >= 8 * sms else 2  # about two blocks an SM
+    return 1, rows, threads, 4 * rows * d * (gates + 2), "l2"
+
+
+Geometry = Tuple[int, int, int, int, str]  # recurrence_geometry's result
+
+
+def _geometry(b: int, d: int, gates: int, device: torch.device, backward: bool) -> Geometry:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return recurrence_geometry(b, d, gates, sms, backward=backward)
+
+
+def _fwd_launch(
+    xz: torch.Tensor, w_h: torch.Tensor, keep: torch.Tensor, coupled: bool, geometry: Geometry
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on checked inputs in ``geometry``; raises on a CUDA error."""
+    t_len, b, _ = xz.shape
+    d = w_h.shape[0]
+    cluster, rows, threads, smem, route = geometry
+    hidden = torch.empty((t_len, b, d), dtype=torch.float32, device=xz.device)
+    cell = torch.empty_like(hidden)
+    fn = _build.library().sbr_lstm_fwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(xz.device):
+        stream = torch.cuda.current_stream(xz.device).cuda_stream
+        status = fn(
+            xz.data_ptr(), w_h.data_ptr(), keep.data_ptr(), hidden.data_ptr(), cell.data_ptr(),
+            t_len, b, d, int(coupled), cluster, rows, threads, smem, int(route == "smem"), stream,
+        )
+    _build.check(status, "lstm_fwd")
+    return hidden, cell
+
+
 def lstm_fwd(
     xz: torch.Tensor, w_h: torch.Tensor, keep: torch.Tensor, coupled: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence of :func:`lstm_fwd_plain`, as the CUDA kernel for CUDA
-    tensors. ``lstm_fwd.launches`` counts the kernel's launches."""
+    tensors, in the geometry of :func:`recurrence_geometry`.
+    ``lstm_fwd.launches`` counts the kernel's launches."""
     if xz.device.type == "cpu":
         return lstm_fwd_plain(xz, w_h, keep, coupled)
     if xz.device.type != "cuda":
@@ -84,25 +220,12 @@ def lstm_fwd(
     gates = 3 if coupled else 4
     if gd != gates * d:
         raise ValueError(f"xz has {gd} gate columns, expected {gates} x {d}")
-    if d > 1024:
-        raise ValueError(f"lstm_fwd takes D <= 1024 (one thread per unit), got {d}")
     _require(xz, "xz", (t_len, b, gd), torch.float32, xz.device)
     _require(w_h, "w_h", (d, gd), torch.float32, xz.device)
     _require(keep, "keep", (t_len, b, 1), torch.float32, xz.device)
-    hidden = torch.empty((t_len, b, d), dtype=torch.float32, device=xz.device)
-    cell = torch.empty_like(hidden)
-    fn = _build.library().sbr_lstm_fwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(xz.device):
-        stream = torch.cuda.current_stream(xz.device).cuda_stream
-        status = fn(
-            xz.data_ptr(), w_h.data_ptr(), keep.data_ptr(), hidden.data_ptr(),
-            cell.data_ptr(), t_len, b, d, int(coupled), stream,
-        )
-    _build.check(status, "lstm_fwd")
+    out = _fwd_launch(xz, w_h, keep, coupled, _geometry(b, d, gates, xz.device, backward=False))
     lstm_fwd.launches += 1
-    return hidden, cell
+    return out
 
 
 lstm_fwd.launches = 0
@@ -168,6 +291,35 @@ def lstm_bwd_plain(
     return dxz, dwh
 
 
+def _bwd_launch(
+    xz: torch.Tensor,
+    w_h: torch.Tensor,
+    hidden: torch.Tensor,
+    cell: torch.Tensor,
+    g: torch.Tensor,
+    keep: torch.Tensor,
+    coupled: bool,
+    geometry: Geometry,
+) -> torch.Tensor:
+    """K2's recurrence on checked inputs in ``geometry``: ``dxz``; raises on
+    a CUDA error."""
+    t_len, b, _ = xz.shape
+    cluster, rows, threads, smem, route = geometry
+    dxz = torch.empty_like(xz)
+    fn = _build.library().sbr_lstm_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(xz.device):
+        stream = torch.cuda.current_stream(xz.device).cuda_stream
+        status = fn(
+            xz.data_ptr(), w_h.data_ptr(), hidden.data_ptr(), cell.data_ptr(), g.data_ptr(),
+            keep.data_ptr(), dxz.data_ptr(), t_len, b, w_h.shape[0], int(coupled), cluster, rows,
+            threads, smem, int(route == "smem"), stream,
+        )
+    _build.check(status, "lstm_bwd")
+    return dxz
+
+
 def lstm_bwd(
     xz: torch.Tensor,
     w_h: torch.Tensor,
@@ -178,9 +330,9 @@ def lstm_bwd(
     coupled: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The adjoint of :func:`lstm_bwd_plain`, as the CUDA kernels for CUDA
-    tensors: the recurrence writes ``dxz``, then :func:`lstm_bwd_dwh`
-    reduces ``dW_h``. ``lstm_bwd.launches`` counts the recurrence's
-    launches."""
+    tensors: the recurrence (geometry :func:`recurrence_geometry` with
+    ``backward=True``) writes ``dxz``, then :func:`lstm_bwd_dwh` reduces
+    ``dW_h``. ``lstm_bwd.launches`` counts the recurrence's launches."""
     if xz.device.type == "cpu":
         return lstm_bwd_plain(xz, w_h, hidden, cell, g, keep, coupled)
     if xz.device.type != "cuda":
@@ -190,26 +342,12 @@ def lstm_bwd(
     gates = 3 if coupled else 4
     if gd != gates * d:
         raise ValueError(f"xz has {gd} gate columns, expected {gates} x {d}")
-    if d > 1024:
-        raise ValueError(f"lstm_bwd takes D <= 1024 (one thread per unit), got {d}")
     _require(xz, "xz", (t_len, b, gd), torch.float32, xz.device)
     _require(w_h, "w_h", (d, gd), torch.float32, xz.device)
     for name, x in (("hidden", hidden), ("cell", cell), ("g", g)):
         _require(x, name, (t_len, b, d), torch.float32, xz.device)
     _require(keep, "keep", (t_len, b, 1), torch.float32, xz.device)
-    w_ht = w_h.T.contiguous()  # [G*D, D]: the dh loads coalesce
-    dxz = torch.empty_like(xz)
-    fn = _build.library().sbr_lstm_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(xz.device):
-        stream = torch.cuda.current_stream(xz.device).cuda_stream
-        status = fn(
-            xz.data_ptr(), w_h.data_ptr(), w_ht.data_ptr(), hidden.data_ptr(),
-            cell.data_ptr(), g.data_ptr(), keep.data_ptr(), dxz.data_ptr(),
-            t_len, b, d, int(coupled), stream,
-        )
-    _build.check(status, "lstm_bwd")
+    dxz = _bwd_launch(xz, w_h, hidden, cell, g, keep, coupled, _geometry(b, d, gates, xz.device, backward=True))
     lstm_bwd.launches += 1
     return dxz, lstm_bwd_dwh(hidden, keep, dxz)
 
