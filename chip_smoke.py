@@ -20,20 +20,27 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    cuDNN's forward + backward beside the port's tower step at fit-bench's
    shape) and its dW_h reduction (3xTF32 on the tensor cores: two
    calls bit-equal, one device launch a call, device time beside torch.mm's;
-   zeros at T=1), the score + group-max kernels (K3 and the FP32 K4), the
-   3xTF32 K4 (each maximum within the certificate's eps of the plain one and
-   within TOL_SCORE per 128 terms, f32 and bf16 rows, cc = 33, 128, 301 and
-   512, ragged slabs; and its error on all-positive rows and reps, where no
-   cancellation hides it, against the stated bound), the score + rank
+   zeros at T=1), the score + group-max kernels K3 and K4 on both routes:
+   3xTF32 (each maximum within the certificate's eps of the plain one and
+   within TOL_SCORE per 128 terms; K3's maxima equal to K4's group maxima
+   bit for bit, with the reps split in the call or once beforehand) and
+   FP32 (within TOL_SCORE; K3's maxima equal to the FP32 K4's bit for bit),
+   f32 and bf16 rows, cc = 33, 128, 301 and 512, ragged slabs, both K3
+   routes timed at U=512 and U=4096; the 3xTF32 error on all-positive rows
+   and reps, where no cancellation hides it, against the stated bound, for
+   K3 and K4; the score + rank
    count kernel (K5, 3xTF32: counts may differ only by rows whose score lies
    within the tolerance of the target), and the
    training step's row kernels at the sparse step's shapes: the row gather
    (P1) and row read-modify-write (P2) on 33,024 sorted unique rows of a
    10,000,000 x 128 f32 and a 20,000,000 x 128 bf16 table (bit for bit,
    with the dropped sentinel interleaved for P2), WARP's candidate scores
-   with the table in shared memory (P3, fit-bench's 1682 x 33 table) and
-   read from device memory (P4, the probe's 1688 x 128 table and the
-   10M/20M tables at 16,384 positions x 5), within 1e-5 relative;
+   with the table in shared memory (P3, staged by one bulk copy a block:
+   fit-bench's 1682 x 33 table in f32 and bf16, byte sizes that are not a
+   multiple of 16, a table that does not start on a 16-byte boundary, timed
+   beside P4 on the same inputs) and read from device memory
+   (P4, the same tables, the probe's 1688 x 128 table and the 10M/20M
+   tables at 16,384 positions x 5), within 1e-5 relative;
 4. the 3xTF32 K4 at the serving shape (10M x 4096) against its plain version
    and timed beside the FP32 K4 on the same inputs; then ``recommend_batch(
    k=10)`` for 4096 users over a 10,000,000-item LSTM-127 catalog
@@ -43,11 +50,19 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    batch served with the caller's ``allow_tf32`` True (the same ids, the
    flag left True);
 5. the running-merge path (1,000,000 items, 512 users, merge budget 0), which
-   launches the score+groupmax kernel chunk by chunk, checked the same way;
+   launches the 3xTF32 K3 chunk by chunk and certifies each user, checked
+   the same way, with the users sent to the FP32 K3;
 5b. a 1,000,000-item catalog of 64 copies of 15,625 items (every copy keeps
    its item's row): every user's top-10 ties with its certificate's
    threshold, so each one is rescored through the FP32 K4; checked the same
    way;
+5c. the same catalog through the running merge (merge budget 0): every user
+   goes to the FP32 K3; checked the same way;
+5d. serve-50M-merge: the serving model at 50,000,000 items (a 25.6 GB f32
+   table), 4096 users, default budgets, so the running merge runs on its
+   own (382 chunk calls of K3 a batch), in users/s, one profiled batch,
+   checked against the plain reference (a running top-11 per catalog chunk)
+   on 256 users; the 10M model is freed first and built again after;
 6. one more 10M batch under ``torch.profiler`` (after the timed runs): the
    device's busy time, its idle share and the kernels that took the time;
 6b. ``evaluation.mrr_score`` on the same 10M-item model for 512 and 4096
@@ -86,7 +101,9 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    Adagrad, lr 0.1, packed, batch 256, sparse updates, one epoch, a
    5.12 GB f32 table and 5.12 GB of state: a warm-up fit, a timed fit in
    examples/s, a profiled fit, then ``mrr_score`` of the trained model on
-   512 held-out users and 64 users' ranks against the per-user loop;
+   512 held-out users, the MRR difference between the fused counter (K5)
+   and the plain chunked counter on those users, and 64 users' ranks
+   against the per-user loop;
 11. fit-20M-bf16, the ``items20m_bf16`` configuration: the same at
    20,000,000 items with a bf16 table and bf16 state: a warm-up fit and a
    timed fit.
@@ -125,6 +142,8 @@ K = 10
 REF_USERS = 256
 # Phase 5b: a catalog of REPEATS copies of N_ITEMS_MERGE / REPEATS items.
 REPEATS = 64
+# Phase 5d, serve-50M-merge: a catalog past the single-pass merge budget.
+N_ITEMS_50M = 50_000_000
 
 TOL_LSTM = 1e-5   # f32; the 127-term sums run in another order, |h| < 1
 TOL_SCORE = 2e-5  # f32 dot of 128 terms in another order, scores of order 1
@@ -162,6 +181,7 @@ BENCH_REPEATS = 5  # continued bench.py-config fits timed, for their spread
 # Evaluation: the test sets of benches/large_scale.py at 10M items, the
 # users checked against the per-user loop, and the fused-vs-chunked model.
 EVAL_USERS = (512, 4096)
+EVAL_SEEDS = {512: 1, 4096: 2}  # synthetic_interactions' rng for each test set
 EVAL_REF_USERS = 64
 N_ITEMS_FUSED = 200_000
 USERS_FUSED = 300
@@ -172,6 +192,9 @@ K5_ROWS = 1_000_000
 ROWS_M = 33_024
 N_ITEMS_BF16 = 20_000_000
 CAND_P, CAND_K = 256 * 64, 5
+# fit-bench's catalog, and the positions P3 and P4 are checked and timed at.
+BENCH_ITEMS = 1682
+P3_POSITIONS = 8192
 # P1/P2/P4 are timed over this many id sets in turn (8 x 34 MB of rows and
 # outputs, past the 50 MB L2), so each call finds its rows in device memory
 # as a training step does.
@@ -193,6 +216,131 @@ PEAK_HBM_BYTES = 3.35e12
 
 class SmokeFailure(Exception):
     pass
+
+
+# -- the cells, shared with scripts/torch_ab.py (which imports this file to
+# time them for two checkouts in turns). Each imports sbr_rs_tpu_torch from
+# the first checkout on sys.path.
+
+
+def serving_model(num_items, dev, seed=42):
+    """serve-10M's model (phase 4) over ``num_items`` items: LSTM-127
+    Normal, T=32, an f32 table, weights from ``seed``."""
+    from sbr_rs_tpu_torch.models import lstm
+
+    return (
+        lstm.Hyperparameters(num_items, SEQ_LEN)
+        .embedding_dim(DIM)
+        .lstm_variant(lstm.LSTMVariant.NORMAL)
+        .from_seed(seed)
+        .build(dev)
+    )
+
+
+def serving_histories(num_items, users=USERS, seed=7):
+    """``users`` histories of 2-31 items from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, num_items, rng.integers(2, 32)).tolist() for _ in range(users)]
+
+
+def eval_test(users):
+    """The held-out users of eval-10M-512 and eval-10M-4096 (phase 6b)."""
+    from sbr_rs_tpu_torch import datasets
+
+    return datasets.synthetic_interactions(users, N_ITEMS, 20, rng=EVAL_SEEDS[users]).to_compressed()
+
+
+def fit_ml1m_model(dev, dtype="float32"):
+    """fit-ml1m's model (phase 8): Coupled LSTM-128, T=128, Hinge, Adam."""
+    from sbr_rs_tpu_torch.models import Loss, Optimizer, lstm
+
+    return (
+        lstm.Hyperparameters(3706, 128)
+        .embedding_dim(128)
+        .table_dtype(dtype)
+        .learning_rate(0.05)
+        .loss(Loss.HINGE)
+        .optimizer(Optimizer.ADAM)
+        .lstm_variant(lstm.LSTMVariant.COUPLED)
+        .num_epochs(1)
+        .batch_size(256)
+        .packed(True)
+        .from_seed(0)
+        .build(dev)
+    )
+
+
+def fit_ml1m_data():
+    """fit-ml1m's data: ML-1M's shape, 6040 users x 3706 items x 165."""
+    from sbr_rs_tpu_torch import datasets
+
+    return datasets.synthetic_interactions(6040, 3706, 165, rng=0).to_compressed()
+
+
+def fit_bench_model(dev):
+    """fit-bench's model (phase 9): Normal LSTM-32, T=32, WARP, Adagrad."""
+    from sbr_rs_tpu_torch.models import Loss, Optimizer, lstm
+
+    return (
+        lstm.Hyperparameters(BENCH_ITEMS, 32)
+        .embedding_dim(32)
+        .learning_rate(0.16)
+        .l2_penalty(4e-4)
+        .lstm_variant(lstm.LSTMVariant.NORMAL)
+        .loss(Loss.WARP)
+        .optimizer(Optimizer.ADAGRAD)
+        .num_epochs(10)
+        .batch_size(256)
+        .packed(True)
+        .from_seed(42)
+        .build(dev)
+    )
+
+
+def fit_bench_split():
+    """fit-bench's data: ML-100K's shape (943 x 1682 x 106), split 0.2 by
+    user; (train, test) interactions."""
+    from sbr_rs_tpu_torch import data as sbr_data
+    from sbr_rs_tpu_torch import datasets
+
+    raw = datasets.synthetic_interactions(943, BENCH_ITEMS, 106, rng=0)
+    return sbr_data.user_based_split(raw, np.random.default_rng(42), 0.2)
+
+
+def cand_inputs(n_rows, c, dtype, offset, dev, gen):
+    """WARP's candidate-score inputs for P3/P4: a table ``[n_rows, c]`` (a
+    view ``offset`` rows into its storage), ``haug [P3_POSITIONS, c]`` and
+    CAND_K candidates a position, a few outside the table (clamped)."""
+    import torch
+
+    table = torch.randn((n_rows + offset, c), device=dev, generator=gen, dtype=dtype)[offset:]
+    haug = torch.randn((P3_POSITIONS, c), device=dev, generator=gen) * c**-0.5
+    cand = torch.randint(-2, n_rows + 2, (P3_POSITIONS, CAND_K), device=dev, generator=gen)
+    return table, haug, cand
+
+
+def device_ms(fn, reps=20):
+    """Device time per call of ``fn``: the self time of its kernels under
+    ``torch.profiler`` over ``reps`` calls after a warm-up. For a call of
+    tens of microseconds the host's launch cost from Python is as large
+    as the kernel, and CUDA events around one call would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then returns an empty trace
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        )
+        if busy_us > 0:
+            return busy_us / 1e3 / reps
+    raise SmokeFailure("torch.profiler saw no device time")
 
 
 def main() -> None:
@@ -254,26 +402,6 @@ def main() -> None:
         return statistics.median(times)
 
     from torch.profiler import ProfilerActivity, profile
-
-    def device_ms(fn, reps=20):
-        """Device time per call of ``fn``: the self time of its kernels under
-        ``torch.profiler`` over ``reps`` calls after a warm-up. For a call of
-        tens of microseconds the host's launch cost from Python is as large
-        as the kernel, and CUDA events around one call would time the host."""
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):  # the profiler now and then returns an empty trace
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            busy_us = sum(
-                e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-            )
-            if busy_us > 0:
-                return busy_us / 1e3 / reps
-        raise SmokeFailure("torch.profiler saw no device time")
 
     def kernels_per_call(fn, reps=5):
         """Device kernels (and memsets/copies) that one call of ``fn`` runs,
@@ -576,16 +704,47 @@ def main() -> None:
     del x, params, g_out, lib, ours_dx
     torch.cuda.empty_cache()
 
-    def check_k3(label, rows, reps, lo, n, group, timed):
-        got = tk.score_groupmax(rows, reps, lo, n, group)
-        want = tk._pad_to(tk.score_groupmax_plain(rows, reps, lo, n, group), got.shape[0])
-        err = compare(f"K3 {label}", got, want, TOL_SCORE)
-        if timed:
-            ms = time_ms(lambda: tk.score_groupmax(rows, reps, lo, n, group))
-            plain_ms = time_ms(lambda: tk.score_groupmax_plain(rows, reps, lo, n, group))
-            print(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-            return err, ms, plain_ms
-        return err, None, None
+    def check_k3(label, rows, reps, lo, n, group):
+        """Both K3 routes against the plain version: the FP32 kernel within
+        TOL_SCORE and equal to the FP32 K4's group maxima bit for bit, the
+        3xTF32 kernel within the certificate's eps of each user and within
+        tol_score(cc), equal to the 3xTF32 K4's group maxima bit for bit (the
+        same arithmetic; a maximum rounds nothing), with the reps split in
+        the call or beforehand by split_reps. Returns ``{name: err}``."""
+        want = tk._pad_to(tk.score_groupmax_plain(rows, reps, lo, n, group), tk.groupmax_rows(rows.shape[0], group))
+        sub = 8 if group > 8 else None
+        fp32 = tk.score_groupmax_fp32(rows, reps, lo, n, group)
+        err_fp32 = compare(f"K3 FP32 {label}", fp32, want, TOL_SCORE, quiet=True)
+        tc = tk.score_groupmax(rows, reps, lo, n, group)
+        if not torch.equal(tc, tk.score_groupmax(rows, reps, lo, n, group, split=tk.split_reps(reps))):
+            raise SmokeFailure(f"K3 3xTF32 {label}: the pre-split reps give other maxima")
+        err = compare(f"K3 3xTF32 {label}", tc, want, tol_score(rows.shape[1]), quiet=True)
+        ratio = within_eps(f"K3 3xTF32 {label}", tc, want, tk.phase1_error_bound(rows, reps))
+        same = ""
+        if sub is not None:
+            if not torch.equal(fp32, tk.score_submax_groupmax_fp32(rows, reps, lo, n, sub, group)[1]):
+                raise SmokeFailure(f"K3 FP32 {label}: not the FP32 K4's group maxima")
+            if not torch.equal(tc, tk.score_submax_groupmax(rows, reps, lo, n, sub, group)[1]):
+                raise SmokeFailure(f"K3 3xTF32 {label}: not the 3xTF32 K4's group maxima")
+            same = "; both equal to K4's group maxima"
+        print(f"  K3 {label}: 3xTF32 max_abs_err {err:.3e} (tol {tol_score(rows.shape[1]):.0e}), at most "
+              f"{ratio:.4f} x eps, the same with split_reps; FP32 {err_fp32:.3e} (tol {TOL_SCORE:.0e}){same}",
+              flush=True)
+        return {"score_groupmax": err, "score_groupmax_fp32": err_fp32}
+
+    def time_k3(rows, reps, lo, n, group):
+        """Both K3 routes and the plain version by CUDA events; the 3xTF32
+        route as the merge calls it, with the reps split once."""
+        split = tk.split_reps(reps)
+        ms = {
+            "3xTF32": time_ms(lambda: tk.score_groupmax(rows, reps, lo, n, group, split=split)),
+            "FP32": time_ms(lambda: tk.score_groupmax_fp32(rows, reps, lo, n, group)),
+            "plain": time_ms(lambda: tk.score_groupmax_plain(rows, reps, lo, n, group)),
+        }
+        print(f"  K3 time at {rows.shape[0]} rows x U={reps.shape[0]}, group {group}: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+              + f" (3xTF32 at {ms['3xTF32'] / ms['FP32']:.1%} of FP32)", flush=True)
+        return ms
 
     def tol_score(cc):
         return TOL_SCORE * max(1.0, cc / 128)
@@ -636,32 +795,36 @@ def main() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         rows = rows32.to(dtype)
         name = str(dtype).replace("torch.", "")
-        err, _, _ = check_k3(f"{name} group 128", rows, reps, lo_mid, N_ITEMS, 128, True)
-        record("score_groupmax", err)
+        for k3, e in check_k3(f"{name} group 128", rows, reps, lo_mid, N_ITEMS, 128).items():
+            record(k3, e)
         for k4, e in check_k4(f"{name} 32/128", rows, reps, lo_mid, N_ITEMS, 32, 128, True).items():
             record(k4, e)
-    # The running merge's call: one chunk x 512 users (timed for the report).
-    reps_m = reps[:USERS_MERGE].contiguous()
-    err, ms, plain_ms = check_k3(
-        f"float32 group 128, U={USERS_MERGE}", rows32, reps_m, lo_mid, N_ITEMS_MERGE, 128, True,
-    )
-    out_rows = tk.groupmax_rows(SERVE_CHUNK, 128)
-    record("score_groupmax", err, ms, plain_ms, work=(
-        2.0 * SERVE_CHUNK * USERS_MERGE * (DIM + 1), nbytes(rows32, reps_m) + out_rows * USERS_MERGE * 4,
-    ))
+    # K3 as the running merge calls it: one chunk x 4096 users (serve-50M-merge,
+    # the report's shape) and x 512 users (phase 5).
+    for u in (USERS, USERS_MERGE):
+        reps_m = reps[:u].contiguous()
+        ms = time_k3(rows32, reps_m, lo_mid, N_ITEMS_50M, 128)
+        if u == USERS:
+            work = (2.0 * SERVE_CHUNK * u * (DIM + 1),
+                    nbytes(rows32, reps_m) + tk.groupmax_rows(SERVE_CHUNK, 128) * u * 4)
+            record("score_groupmax", 0.0, ms["3xTF32"], ms["plain"], work=work, tf32_products=3)
+            record("score_groupmax_fp32", 0.0, ms["FP32"], ms["plain"], work=work)
     # Ragged slabs: mid-catalog (lo + c < n) and past the catalog end; the
     # other subgroup widths of the 3xTF32 epilogue (8: two maxima a warp).
     ragged = rows32[4096 : 4096 + 100_000]
     for lo, n in ((4096, N_ITEMS_MERGE), (4096, 50_000)):
         label = f"ragged c=100000 lo={lo} n={n}"
-        err, _, _ = check_k3(label, ragged, reps, lo, n, 128, False)
-        record("score_groupmax", err)
+        for k3, e in check_k3(label, ragged, reps, lo, n, 128).items():
+            record(k3, e)
         for k4, e in check_k4(label, ragged, reps, lo, n, 32, 128, False).items():
             record(k4, e)
     for sub, group in ((8, 32), (16, 64), (64, 128)):
         for k4, e in check_k4(f"ragged {sub}/{group}", ragged, reps[:300].contiguous(), 4096, 50_000, sub, group,
                               False).items():
             record(k4, e)
+    for group in (8, 32):
+        for k3, e in check_k3(f"ragged group {group}", ragged, reps[:300].contiguous(), 4096, 50_000, group).items():
+            record(k3, e)
     del rows32, rows, reps, reps_m, ragged
     # The other widths take the 3xTF32 tile's other routes (as K5's below).
     for cc, c, u in ((33, 50_001, 13), (301, 30_000, 300), (512, 20_000, 300)):
@@ -672,13 +835,17 @@ def main() -> None:
             for k4, e in check_k4(f"{name} Cc={cc} c={c} U={u}", rows32.to(dtype), reps, 5, c - 1, 32, 128,
                                   False).items():
                 record(k4, e)
+            for k3, e in check_k3(f"{name} Cc={cc} c={c} U={u}", rows32.to(dtype), reps, 5, c - 1, 128).items():
+                record(k3, e)
     del rows32, reps
     # The bound against the card's arithmetic: all-positive rows and reps, so
     # that no cancellation hides the error, one nonzero row in 16 so that each
-    # subgroup maximum (sub 16) is that row's 3xTF32 score; the largest error
-    # against the float64 dot, over sum_k |reps_k| M_k, beside the phase-1 part
-    # of gamma (split + truncating accumulation) and gamma itself.
-    print("phase 3 K4 3xTF32 error on all-positive inputs against the stated bound", flush=True)
+    # subgroup maximum (K4, sub 16) and each group maximum (K3, group 16) is
+    # that row's 3xTF32 score; the largest error against the float64 dot,
+    # over sum_k |reps_k| M_k, beside the phase-1 part of gamma (split +
+    # truncating accumulation) and gamma itself. K3's arithmetic is K4's, so
+    # one bound holds both.
+    print("phase 3 K3/K4 3xTF32 error on all-positive inputs against the stated bound", flush=True)
     for cc in (33, 128, 512):
         for dtype in (torch.float32, torch.bfloat16):
             c = 32768
@@ -687,17 +854,19 @@ def main() -> None:
             rows = rows.to(dtype)
             rp = (torch.rand((256, cc), device=dev, generator=gen) * 0.5 + 0.5).contiguous()
             smax, _ = tk.score_submax_groupmax(rows, rp, 0, c, 16, 32)
+            gmax = tk.score_groupmax(rows, rp, 0, c, 16)
             exact = rows[::16].double() @ rp.double().T
             scale = rp.double() @ rows.float().abs().amax(dim=0).double()
-            ratio = float(((smax[: c // 16].double() - exact).abs() / scale).max())
             gamma = tk.phase1_gamma(cc, dtype, tensor_cores=True)
             gamma1 = gamma - tk._gamma_fp32(cc)
             name = str(dtype).replace("torch.", "")
-            print(f"  cc={cc} {name}: largest |s - s_fp64| / (sum |reps| M) {ratio:.3e}; phase-1 gamma "
-                  f"{gamma1:.3e} ({ratio / gamma1:.1%} of it), gamma {gamma:.3e}", flush=True)
-            if not ratio <= gamma1:
-                raise SmokeFailure(f"K4 3xTF32 cc={cc} {name}: error {ratio:.3e} above its bound {gamma1:.3e}")
-    del rows, rp, smax, exact, scale
+            for kernel, got in (("K4", smax), ("K3", gmax)):
+                ratio = float(((got[: c // 16].double() - exact).abs() / scale).max())
+                print(f"  {kernel} cc={cc} {name}: largest |s - s_fp64| / (sum |reps| M) {ratio:.3e}; phase-1 "
+                      f"gamma {gamma1:.3e} ({ratio / gamma1:.1%} of it), gamma {gamma:.3e}", flush=True)
+                if not ratio <= gamma1:
+                    raise SmokeFailure(f"{kernel} 3xTF32 cc={cc} {name}: error {ratio:.3e} above its bound {gamma1:.3e}")
+    del rows, rp, smax, gmax, exact, scale
     torch.cuda.empty_cache()
 
     def check_k5(label, rows, reps, lo, col_lo, n, timed):
@@ -856,39 +1025,38 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     print(
-        "phase 3 P3/P4 at fit-bench's table (1682 x 33), the probe's (1688 x 128) and rows wider than a "
-        "warp's registers hold (80 and 4000 x 640), P=8192 x K=5", flush=True,
+        "phase 3 P3/P4 at fit-bench's table (1682 x 33, f32 and bf16: 222,024 and 111,012 bytes, neither a "
+        "multiple of 16), a view of it one row in (not on a 16-byte boundary), a 1000 x 32 table (a multiple "
+        "of 16), a 3 x 5 one, the probe's (1688 x 128) and rows wider than a warp's registers hold "
+        f"(80 and 4000 x 640), P={P3_POSITIONS} x K={CAND_K}", flush=True,
     )
-    for n_rows, c, dtype in (
-        (1682, 33, torch.float32), (1682, 33, torch.bfloat16), (1688, 128, torch.float32),
-        (80, 640, torch.float32), (4000, 640, torch.bfloat16),
+    for n_rows, c, dtype, offset in (
+        (BENCH_ITEMS, 33, torch.float32, 0), (BENCH_ITEMS, 33, torch.bfloat16, 0),
+        (BENCH_ITEMS, 33, torch.float32, 1), (BENCH_ITEMS, 33, torch.bfloat16, 3), (1000, 32, torch.float32, 0),
+        (3, 5, torch.float32, 1), (1688, 128, torch.float32, 0), (80, 640, torch.float32, 0),
+        (4000, 640, torch.bfloat16, 0),
     ):
         name = str(dtype).replace("torch.", "")
-        table = torch.randn((n_rows, c), device=dev, generator=gen, dtype=dtype)
-        haug = torch.randn((8192, c), device=dev, generator=gen) * c**-0.5
-        cand = torch.randint(0, n_rows, (8192, CAND_K), device=dev, generator=gen)
-        label = f"{name} {n_rows} x {c}"
-        if rowk.cand_score_fits_smem(table):
+        table, haug, cand = cand_inputs(n_rows, c, dtype, offset, dev, gen)
+        label = f"{name} {n_rows} x {c}" + (f", {table.data_ptr() % 16} bytes past a 16-byte boundary"
+                                             if table.data_ptr() % 16 else "")
+        fits = rowk.cand_score_fits_smem(table)
+        if fits:
             check_cand(label, "cand_score_smem", rowk.cand_score_smem, haug, table, cand,
-                       timed=(c, dtype) == (33, torch.float32))
+                       timed=(c, dtype, offset) == (33, torch.float32, 0))
         check_cand(label, "cand_score_rows", rowk.cand_score_rows, haug, table, cand, timed=False)
-        ms = device_ms(lambda: rowk.cand_score_rows(haug, table, cand))
-        print(f"  cand_score_rows {label}: device time {ms:.4f} ms", flush=True)
+        ms = {"P4": device_ms(lambda: rowk.cand_score_rows(haug, table, cand))}
+        if fits and n_rows > 3:
+            ms["P3"] = device_ms(lambda: rowk.cand_score_smem(haug, table, cand))
+        print(f"  {label}, device time: " + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in ms.items()), flush=True)
     del table, haug, cand
     torch.cuda.empty_cache()
 
     # -- phase 4: the serving path at 10M items ------------------------------------
     t0 = time.perf_counter()
-    model = (
-        lstm.Hyperparameters(N_ITEMS, SEQ_LEN)
-        .embedding_dim(DIM)
-        .lstm_variant(lstm.LSTMVariant.NORMAL)
-        .from_seed(42)
-        .build(dev)
-    )
+    model = serving_model(N_ITEMS, dev)
     torch.cuda.synchronize()
-    rng = np.random.default_rng(7)
-    histories = [rng.integers(0, N_ITEMS, rng.integers(2, 32)).tolist() for _ in range(USERS)]
+    histories = serving_histories(N_ITEMS)
     print(
         f"phase 4 model: {N_ITEMS} items, LSTM-{DIM} Normal, f32 table, built in "
         f"{time.perf_counter() - t0:.1f} s; {USERS} histories of 2-31 items", flush=True,
@@ -944,6 +1112,7 @@ def main() -> None:
         "lstm_bwd": lk.lstm_bwd,
         "lstm_bwd_dwh": lk.lstm_bwd_dwh,
         "score_groupmax": tk.score_groupmax,
+        "score_groupmax_fp32": tk.score_groupmax_fp32,
         "score_submax_groupmax": tk.score_submax_groupmax,
         "score_submax_groupmax_fp32": tk.score_submax_groupmax_fp32,
         "score_count_ge": tk.score_count_ge,
@@ -952,7 +1121,10 @@ def main() -> None:
         "cand_score_smem": rowk.cand_score_smem,
         "cand_score_rows": rowk.cand_score_rows,
     }
-    serving_kernels = ("lstm_fwd", "score_groupmax", "score_submax_groupmax", "score_submax_groupmax_fp32")
+    serving_kernels = (
+        "lstm_fwd", "score_groupmax", "score_groupmax_fp32", "score_submax_groupmax", "score_submax_groupmax_fp32",
+    )
+    merge_kernels = ("lstm_fwd", "score_groupmax")  # serve-50M-merge: no user rechecked there
     eval_kernels = ("lstm_fwd", "score_count_ge")
     training_kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_dwh", "gather_rows")
     warp_kernels = training_kernels + ("cand_score_smem",)  # fit-bench: the table fits shared memory
@@ -995,27 +1167,17 @@ def main() -> None:
     if not flag_kept or ids_tf32 != ids or not np.array_equal(vals_tf32, vals):
         raise SmokeFailure(f"phase 4: with allow_tf32 True the batch differs or the flag changed ({flag_kept})")
     print("  phase 4 with the caller's allow_tf32 True: the same ids and scores, the flag left True", flush=True)
-    model_merge = (
-        lstm.Hyperparameters(N_ITEMS_MERGE, SEQ_LEN)
-        .embedding_dim(DIM)
-        .lstm_variant(lstm.LSTMVariant.NORMAL)
-        .from_seed(42)
-        .build(dev)
-    )
+    model_merge = serving_model(N_ITEMS_MERGE, dev)
     model_merge._MERGE_BUFFER_BYTES = 0  # forces the running per-chunk merge
-    rng_m = np.random.default_rng(8)
-    hist_m = [rng_m.integers(0, N_ITEMS_MERGE, rng_m.integers(2, 32)).tolist() for _ in range(USERS_MERGE)]
+    hist_m = serving_histories(N_ITEMS_MERGE, USERS_MERGE, seed=8)
+    before = topk_streamed.rechecked_users
     t0 = time.perf_counter()
     ids_m, vals_m = model_merge.recommend_batch(hist_m, k=K, return_scores=True)
     t_m = time.perf_counter() - t0
-    print(f"phase 5 running merge: {N_ITEMS_MERGE} items, U={USERS_MERGE}: {t_m * 1e3:.1f} ms (one call)", flush=True)
-    model_rep = (
-        lstm.Hyperparameters(N_ITEMS_MERGE, SEQ_LEN)
-        .embedding_dim(DIM)
-        .lstm_variant(lstm.LSTMVariant.NORMAL)
-        .from_seed(43)
-        .build(dev)
-    )
+    print(f"phase 5 running merge: {N_ITEMS_MERGE} items, U={USERS_MERGE}: {t_m * 1e3:.1f} ms (one call); "
+          f"the certificate sent {topk_streamed.rechecked_users - before} of {USERS_MERGE} users to the FP32 K3",
+          flush=True)
+    model_rep = serving_model(N_ITEMS_MERGE, dev, seed=43)
     tab_rep = model_rep._params["item_table"]
     tab_rep.copy_(tab_rep[: N_ITEMS_MERGE // REPEATS].repeat(REPEATS, 1))  # item i's row at i + j * 15,625
     before = topk_streamed.rechecked_users
@@ -1027,6 +1189,18 @@ def main() -> None:
           f"(one call); the certificate sent {rechecked} of {USERS_MERGE} users to the FP32 K4", flush=True)
     if rechecked != USERS_MERGE:
         raise SmokeFailure(f"phase 5b: {rechecked} users rechecked, not all {USERS_MERGE}: every top-10 ties")
+    model_rep._MERGE_BUFFER_BYTES = 0  # phase 5c: the same catalog through the running merge
+    before, fp32_before = topk_streamed.rechecked_users, tk.score_groupmax_fp32.launches
+    t0 = time.perf_counter()
+    ids_c, vals_c = model_rep.recommend_batch(hist_m, k=K, return_scores=True)
+    t_c = time.perf_counter() - t0
+    rechecked = topk_streamed.rechecked_users - before
+    fp32_calls = tk.score_groupmax_fp32.launches - fp32_before
+    print(f"phase 5c the same catalog, running merge, U={USERS_MERGE}: {t_c * 1e3:.1f} ms (one call); the "
+          f"certificate sent {rechecked} of {USERS_MERGE} users to the FP32 K3 ({fp32_calls} chunk calls)", flush=True)
+    if rechecked != USERS_MERGE or fp32_calls != -(-N_ITEMS_MERGE // SERVE_CHUNK):
+        raise SmokeFailure(f"phase 5c: {rechecked} users rechecked in {fp32_calls} FP32 K3 calls, not all "
+                           f"{USERS_MERGE} in one call a chunk")
     read_counters("serving path", serving_kernels)
 
     # -- checks against the plain reference ------------------------------------------
@@ -1038,9 +1212,10 @@ def main() -> None:
     check_against_reference("phase 5", model_merge, hist_m, ids_m, vals_m, lstm_apply, torch)
     check_lists("phase 5b", ids_r, hist_m, N_ITEMS_MERGE)
     check_against_reference("phase 5b", model_rep, hist_m, ids_r, vals_r, lstm_apply, torch)
-    del model_rep, tab_rep
+    check_lists("phase 5c", ids_c, hist_m, N_ITEMS_MERGE)
+    check_against_reference("phase 5c", model_rep, hist_m, ids_c, vals_c, lstm_apply, torch)
+    del model_rep, tab_rep, model_merge
 
-    # -- phase 6: where a batch's device time goes (a separate traced run) ----------
     def profiled(label, fn, top):
         """Run ``fn`` once under ``torch.profiler`` and print its wall time,
         the device's busy time (sum of kernel self times), the idle share,
@@ -1063,18 +1238,60 @@ def main() -> None:
         for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:top]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:100]}")
 
+    # -- phase 5d: serve-50M-merge, the running merge at default budgets ----------
+    del model, table
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model_50m = serving_model(N_ITEMS_50M, dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    merge_bytes = -(-N_ITEMS_50M // SERVE_CHUNK) * (SERVE_CHUNK // 128) * USERS * 8
+    print(f"phase 5d model: {N_ITEMS_50M} items, LSTM-{DIM} Normal, f32 table "
+          f"({model_50m._params['item_table'].numel() * 4 / 1e9:.1f} GB), built in {t_build:.1f} s; "
+          f"{merge_bytes / 1e9:.2f} GB of group maxima against the {model_50m._MERGE_BUFFER_BYTES / 2**30:g} GiB "
+          f"merge budget", flush=True)
+    if merge_bytes <= model_50m._MERGE_BUFFER_BYTES:
+        raise SmokeFailure("phase 5d: the catalog fits the single-pass budget; the running merge would not run")
+    hist_50 = serving_histories(N_ITEMS_50M)
+    zero_counters()
+    before = topk_streamed.rechecked_users
+    model_50m.recommend_batch(hist_50, k=K)  # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ids_50, vals_50 = model_50m.recommend_batch(hist_50, k=K, return_scores=True)
+        times.append(time.perf_counter() - t0)
+    t_med = statistics.median(times)
+    chunks = -(-N_ITEMS_50M // SERVE_CHUNK)
+    print(
+        f"phase 5d serve-50M-merge recommend_batch k={K}: {USERS / t_med:.1f} users/s (median of 3: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per batch of {USERS}); K3 launched "
+        f"{tk.score_groupmax.launches} times in 4 batches ({chunks} chunks a batch); the certificate sent "
+        f"{(topk_streamed.rechecked_users - before) / 4:g} of {USERS} users a batch to the FP32 K3", flush=True,
+    )
+    read_counters("serve-50M-merge path", merge_kernels)
+    if tk.score_groupmax.launches != 4 * chunks:
+        raise SmokeFailure(f"phase 5d: {tk.score_groupmax.launches} K3 launches for 4 batches of {chunks} chunks")
+    profiled(f"phase 5d profile, one batch at {N_ITEMS_50M} items", lambda: model_50m.recommend_batch(hist_50, k=K),
+             top=10)
+    check_lists("phase 5d", ids_50, hist_50, N_ITEMS_50M)
+    check_against_reference(
+        "phase 5d", model_50m, hist_50[:REF_USERS], ids_50[:REF_USERS], vals_50[:REF_USERS], lstm_apply, torch
+    )
+    del model_50m
+    torch.cuda.empty_cache()
+    model = serving_model(N_ITEMS, dev)  # phase 4's model again, for the profile and the evaluation path
+    table = model._params["item_table"]
+
+    # -- phase 6: where a batch's device time goes (a separate traced run) ----------
     profiled(
         f"phase 6 profile, one batch at {N_ITEMS} items",
         lambda: model.recommend_batch(histories, k=K), top=8,
     )
-    del model_merge
     torch.cuda.empty_cache()
 
     # -- phase 6b: the evaluation path at 10M items ----------------------------------
-    tests = {
-        u: datasets.synthetic_interactions(u, N_ITEMS, 20, rng=seed).to_compressed()
-        for u, seed in zip(EVAL_USERS, (1, 2))
-    }
+    tests = {u: eval_test(u) for u in EVAL_USERS}
     zero_counters()
     mrr_calls = 0
     for u, test in tests.items():
@@ -1199,37 +1416,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- the training path -------------------------------------------------------------
-    def ml1m_model(dtype="float32"):
-        return (
-            lstm.Hyperparameters(3706, 128)
-            .embedding_dim(128)
-            .table_dtype(dtype)
-            .learning_rate(0.05)
-            .loss(Loss.HINGE)
-            .optimizer(Optimizer.ADAM)
-            .lstm_variant(lstm.LSTMVariant.COUPLED)
-            .num_epochs(1)
-            .batch_size(256)
-            .packed(True)
-            .from_seed(0)
-            .build(dev)
-        )
-
-    def bench_model():
-        return (
-            lstm.Hyperparameters(1682, 32)
-            .embedding_dim(32)
-            .learning_rate(0.16)
-            .l2_penalty(4e-4)
-            .lstm_variant(lstm.LSTMVariant.NORMAL)
-            .loss(Loss.WARP)
-            .optimizer(Optimizer.ADAGRAD)
-            .num_epochs(10)
-            .batch_size(256)
-            .packed(True)
-            .from_seed(42)
-            .build(dev)
-        )
+    ml1m_model = functools.partial(fit_ml1m_model, dev)
+    bench_model = functools.partial(fit_bench_model, dev)
 
     def check_refit(label, make, data):
         """Two fresh models from one seed, one fit each: the dense table
@@ -1248,9 +1436,8 @@ def main() -> None:
         print(f"  {label}: two fits from one seed give equal tables and towers, bit for bit", flush=True)
 
     t0 = time.perf_counter()
-    ml1m_data = datasets.synthetic_interactions(6040, 3706, 165, rng=0).to_compressed()
-    bench_raw = datasets.synthetic_interactions(943, 1682, 106, rng=0)
-    bench_train, bench_test = sbr_data.user_based_split(bench_raw, np.random.default_rng(42), 0.2)
+    ml1m_data = fit_ml1m_data()
+    bench_train, bench_test = fit_bench_split()
     bench_data = bench_train.to_compressed()
     print(
         f"training data: ml1m-shaped {len(ml1m_data)} interactions, bench-shaped "
@@ -1478,7 +1665,7 @@ def main() -> None:
     check_refit("phase 9 bench", bench_model, bench_data)
     ptr, items = bench_data.user_pointers, bench_data.item_ids
     hist_t = [items[ptr[u] : ptr[u + 1]].tolist() for u in range(len(ptr) - 1) if ptr[u + 1] > ptr[u]][:64]
-    check_lists("phase 9 recommend_batch", model.recommend_batch(hist_t, k=K), hist_t, 1682)
+    check_lists("phase 9 recommend_batch", model.recommend_batch(hist_t, k=K), hist_t, BENCH_ITEMS)
     held_out = bench_test.to_compressed()
     zero_counters()
     t0 = time.perf_counter()
@@ -1565,6 +1752,24 @@ def main() -> None:
                   f"{t_eval * 1e3:.1f} ms", flush=True)
             if not (np.isfinite(mrr) and 0 < mrr <= 1):
                 raise SmokeFailure(f"phase 10: MRR {mrr}")
+            # K5's near-tie difference where it matters to users: the MRR of the
+            # same users through the fused 3xTF32 counter and the plain FP32
+            # chunked counter.
+            users = np.flatnonzero(np.diff(test.user_pointers) >= 2)
+            inputs = evaluation._batch_inputs(model, test, users, num_items)
+            mrrs = {}
+            for name, (counts, self_hits, _) in (
+                ("fused (K5)", evaluation._count_catalog_fused(model._params["item_table"], *inputs, num_items)),
+                ("chunked (FP32)", evaluation._count_catalog_chunked(
+                    model._params["item_table"], *inputs, num_items, evaluation._ITEM_CHUNK)),
+            ):
+                ranks = (1 + counts - self_hits).double()
+                mrrs[name] = (ranks, float((1.0 / ranks).mean()))
+            (r_f, m_f), (r_c, m_c) = mrrs.values()
+            print(f"phase 10 K5 near-ties on the trained model, {len(users)} users: MRR fused {m_f:.9f}, chunked "
+                  f"{m_c:.9f}, difference {m_f - m_c:+.3e}; ranks differ for {int((r_f != r_c).sum())} users, by at "
+                  f"most {int((r_f - r_c).abs().max())}", flush=True)
+            del inputs
             ptr = test.user_pointers
             sub = sbr_data.CompressedInteractions(
                 EVAL_REF_USERS, num_items, ptr[: EVAL_REF_USERS + 1], test.item_ids[: ptr[EVAL_REF_USERS]],
@@ -1581,7 +1786,8 @@ def main() -> None:
         "lstm_fwd": ("sbr_rs_tpu_torch/csrc/lstm_fwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:49"),
         "lstm_bwd": ("sbr_rs_tpu_torch/csrc/lstm_bwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:82"),
         "lstm_bwd_dwh": ("sbr_rs_tpu_torch/csrc/lstm_bwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:82"),
-        "score_groupmax": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:108"),
+        "score_groupmax": ("sbr_rs_tpu_torch/csrc/score_submax_tc.cu", "sbr_rs_tpu/ops/pallas_topk.py:108"),
+        "score_groupmax_fp32": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:108"),
         "score_submax_groupmax": ("sbr_rs_tpu_torch/csrc/score_submax_tc.cu", "sbr_rs_tpu/ops/pallas_topk.py:130"),
         "score_submax_groupmax_fp32": ("sbr_rs_tpu_torch/csrc/score_groupmax.cu", "sbr_rs_tpu/ops/pallas_topk.py:130"),
         "score_count_ge": ("sbr_rs_tpu_torch/csrc/score_count.cu", "sbr_rs_tpu/ops/pallas_topk.py:365"),
@@ -1651,8 +1857,9 @@ def check_ranks(phase, model, test, ranks, generic, torch):
 def check_against_reference(phase, model, histories, ids, vals, lstm_apply, torch):
     """The same users through a plain reference: the plain LSTM loop on the
     same parameters, one torch.matmul per catalog chunk, seen items masked,
-    torch.topk. Scores agree within TOL_REL relative; ids agree except where
-    the reference's own scores tie within that tolerance."""
+    a running torch.topk of K + 1 over the chunks. Scores agree within TOL_REL
+    relative; ids agree except where the reference's own scores tie within
+    that tolerance."""
     params = model._params
     table = params["item_table"]
     n, t = table.shape[0], model.hyper._max_sequence_length
@@ -1667,13 +1874,24 @@ def check_against_reference(phase, model, histories, ids, vals, lstm_apply, torc
     emb = table[torch.from_numpy(inputs).to(dev)][:, :, :-1].float()
     hidden = lstm_apply(params["tower"], emb, coupled=False)
     reps = hidden[torch.arange(u, device=dev), torch.from_numpy(last).to(dev)]
-    scores = torch.cat([
-        reps @ table[lo : lo + SERVE_CHUNK, :-1].float().T + table[lo : lo + SERVE_CHUNK, -1].float()
-        for lo in range(0, n, SERVE_CHUNK)
-    ], dim=1)
+    # A running top-(K+1) over the catalog, chunk by chunk: a dense [U, N]
+    # score matrix would not fit beside a 50M-item table.
+    width = max(len(set(h)) for h in histories)
+    seen = torch.full((u, max(width, 1)), -1, dtype=torch.int64, device=dev)
     for i, h in enumerate(histories):
-        scores[i, torch.tensor(sorted(set(h)), device=dev)] = float("-inf")
-    ref_v, ref_i = torch.topk(scores, K + 1, dim=1)
+        seen[i, : len(set(h))] = torch.tensor(sorted(set(h)), device=dev)
+    rows = torch.arange(u, device=dev)[:, None].expand_as(seen)
+    ref_v = torch.full((u, K + 1), float("-inf"), device=dev)
+    ref_i = torch.full((u, K + 1), -1, dtype=torch.int64, device=dev)
+    for lo in range(0, n, SERVE_CHUNK):
+        chunk = table[lo : lo + SERVE_CHUNK].float()
+        scores = reps @ chunk[:, :-1].T + chunk[:, -1]
+        local = seen - lo
+        hit = (local >= 0) & (local < chunk.shape[0])
+        scores[rows[hit], local[hit]] = float("-inf")
+        cv, cp = torch.topk(scores, min(K + 1, chunk.shape[0]), dim=1)
+        ref_v, p = torch.topk(torch.cat([ref_v, cv], dim=1), K + 1, dim=1)
+        ref_i = torch.gather(torch.cat([ref_i, lo + cp], dim=1), 1, p)
     ref_v, ref_i = ref_v.cpu().numpy(), ref_i.cpu().numpy()
     got_i = np.asarray(ids)
     got_v = np.asarray(vals)
@@ -1681,7 +1899,8 @@ def check_against_reference(phase, model, histories, ids, vals, lstm_apply, torc
     if not np.all(np.abs(got_v - ref_v[:, :K]) <= bound):
         worst = float(np.max(np.abs(got_v - ref_v[:, :K]) / np.abs(ref_v[:, :K])))
         raise SmokeFailure(f"{phase}: scores differ from the reference (worst relative {worst:.2e})")
-    own = scores.gather(1, torch.from_numpy(got_i).to(dev)).cpu().numpy()
+    got_rows = table[torch.from_numpy(got_i).to(dev)].float()  # [U, K, C]
+    own = ((got_rows[:, :, :-1] @ reps[:, :, None])[:, :, 0] + got_rows[:, :, -1]).cpu().numpy()
     if not np.all(np.abs(own - got_v) <= bound):
         raise SmokeFailure(f"{phase}: returned scores are not the items' reference scores")
     gap = np.abs(np.diff(ref_v, axis=1)) <= TOL_REL * np.abs(ref_v[:, 1:])

@@ -1,8 +1,9 @@
-// Catalog scoring fused with subgroup and group maxima, on Hopper's tensor
-// cores in 3xTF32 (sm_90a).
+// Catalog scoring fused with subgroup and group maxima, or group maxima
+// alone, on Hopper's tensor cores in 3xTF32 (sm_90a).
 //
 // Replaces: sbr_rs_tpu/ops/pallas_topk.py:_submax_groupmax_kernel
-// (score_submax_groupmax), phase 1 of the exact two-phase top-k of
+// (score_submax_groupmax, K4) and :_groupmax_kernel (score_groupmax, K3,
+// the one-output mode below), phase 1 of the exact two-phase top-k of
 // serving. For table rows [c, cc] (f32, or bf16, exact in TF32) and
 // bias-augmented user representations reps [u, cc] (f32):
 //   s[i, u]     = sum_k rows[i, k] * reps[u, k], in 3xTF32
@@ -12,7 +13,10 @@
 // Both outputs carry round_up(c, 2048) / width rows, the rows past c all
 // -inf (the row contract of the TPU functions, groupmax_rows). sub and group
 // are in {8, 16, 32, 64, 128}, sub < group, group % sub == 0. Every offset
-// is 64-bit (the 10M-row subgroup stack has 1.28e9 elements).
+// is 64-bit (the 10M-row subgroup stack has 1.28e9 elements). K3 is the
+// same kernel with kTwo = false: gmax only (the launcher passes sub =
+// group), for one catalog chunk of the running merge at a time, and its
+// arithmetic is K4's, so the error bound below is K3's too.
 //
 // What bounds it on the H100: arithmetic. At the serving shape (10M rows x
 // 4096 users x 128) one call is 10.5 TFLOP of products against a 5.12 GB
@@ -91,7 +95,9 @@ __device__ __forceinline__ float warp_max_over_g(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
 }
 
-template <typename RowT, bool kVec, bool kResident>
+// kTwo: subgroup and group maxima (K4); else group maxima only (K3, called
+// with sub = group).
+template <typename RowT, bool kVec, bool kResident, bool kTwo>
 __global__ void __launch_bounds__(kThreads, 1)
     score_submax_kernel(const RowT* __restrict__ rows, const float* __restrict__ tiles,
                         float* __restrict__ smax, float* __restrict__ gmax, int64_t c, int cc,
@@ -107,7 +113,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int base = sub < 16 ? sub : 16;
 
   if (r0 >= c) {  // padding up to the 2048-row unit: -inf rows only
-    for (int pass = 0; pass < 2; ++pass) {
+    for (int pass = kTwo ? 0 : 1; pass < 2; ++pass) {
       const int w = pass ? group : sub;
       float* out = pass ? gmax : smax;
       const int64_t count = static_cast<int64_t>(BM / w) * u;
@@ -147,18 +153,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     __syncthreads();
-    write_maxima(red, smax, sub, base, r0, u0, u);
+    if constexpr (kTwo) write_maxima(red, smax, sub, base, r0, u0, u);
     write_maxima(red, gmax, group, base, r0, u0, u);
   };
   run<RowT, kVec, kResident>(rows, tiles, c, cc, u, r0, smem, red_bytes(sub), epilogue);
 }
 
-template <typename RowT>
-int launch(const RowT* rows, const float* reps, float* tiles, float* smax, float* gmax,
-           long long c, int cc, int u, long long lo, long long n, int sub, int group,
-           cudaStream_t stream) {
-  const int split = split_reps(reps, tiles, u, cc, stream);
-  if (split != 0) return split;
+// tiles: the split reps (split_reps), 16-byte aligned.
+template <typename RowT, bool kTwo>
+int launch(const RowT* rows, const float* tiles, float* smax, float* gmax, long long c, int cc,
+           int u, long long lo, long long n, int sub, int group, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   const long long blocks = (c + 2047) / 2048 * (2048 / BM);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int red = red_bytes(sub);
@@ -167,11 +172,11 @@ int launch(const RowT* rows, const float* reps, float* tiles, float* smax, float
     constexpr bool kResident = decltype(resident)::value;
     const size_t smem = smem_bytes<RowT>(kResident, (cc + KC - 1) / KC * KC, red);
     const cudaError_t err = cudaFuncSetAttribute(
-        score_submax_kernel<RowT, kVec, kResident>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        score_submax_kernel<RowT, kVec, kResident, kTwo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (blocks > 0) {
-      score_submax_kernel<RowT, kVec, kResident>
+      score_submax_kernel<RowT, kVec, kResident, kTwo>
           <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
               rows, tiles, smax, gmax, c, cc, u, lo, n, sub, group);
     }
@@ -189,12 +194,39 @@ extern "C" int sbr_score_submax_tc_f32(const float* rows, const float* reps, flo
                                        float* smax, float* gmax, long long c, int cc, int u,
                                        long long lo, long long n, int sub, int group,
                                        cudaStream_t stream) {
-  return launch(rows, reps, scratch, smax, gmax, c, cc, u, lo, n, sub, group, stream);
+  const int split = split_reps(reps, scratch, u, cc, stream);
+  return split != 0 ? split : launch<float, true>(rows, scratch, smax, gmax, c, cc, u, lo, n, sub, group, stream);
 }
 
 extern "C" int sbr_score_submax_tc_bf16(const __nv_bfloat16* rows, const float* reps,
                                         float* scratch, float* smax, float* gmax, long long c,
                                         int cc, int u, long long lo, long long n, int sub,
                                         int group, cudaStream_t stream) {
-  return launch(rows, reps, scratch, smax, gmax, c, cc, u, lo, n, sub, group, stream);
+  const int split = split_reps(reps, scratch, u, cc, stream);
+  return split != 0 ? split
+                    : launch<__nv_bfloat16, true>(rows, scratch, smax, gmax, c, cc, u, lo, n, sub, group, stream);
+}
+
+// The TF32 hi and lo of reps [u, cc] into scratch
+// (sbr_score_tile_scratch_floats(u, cc) floats, 16-byte aligned), which
+// K3's calls below read: the running merge splits once per batch.
+extern "C" int sbr_score_tile_split(const float* reps, float* scratch, int u, int cc,
+                                    cudaStream_t stream) {
+  const int status = split_reps(reps, scratch, u, cc, stream);
+  return status != 0 ? status : static_cast<int>(cudaGetLastError());
+}
+
+// K3: gmax [round_up(c, 2048) / group, u] f32 alone, for reps of width cc
+// that sbr_score_tile_split wrote into tiles.
+extern "C" int sbr_score_groupmax_tc_f32(const float* rows, const float* tiles, float* gmax,
+                                         long long c, int cc, int u, long long lo, long long n,
+                                         int group, cudaStream_t stream) {
+  return launch<float, false>(rows, tiles, nullptr, gmax, c, cc, u, lo, n, group, group, stream);
+}
+
+extern "C" int sbr_score_groupmax_tc_bf16(const __nv_bfloat16* rows, const float* tiles,
+                                          float* gmax, long long c, int cc, int u, long long lo,
+                                          long long n, int group, cudaStream_t stream) {
+  return launch<__nv_bfloat16, false>(rows, tiles, nullptr, gmax, c, cc, u, lo, n, group, group,
+                                      stream);
 }

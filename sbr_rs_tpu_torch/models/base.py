@@ -19,12 +19,13 @@ Serving (``recommend_batch``):
   score matrix and one top-k (:func:`topk_small`);
 * larger catalogs: the exact two-phase selection (:func:`topk_streamed`).
   Phase 1 keeps the top ``k + S`` groups by group maximum from the fused
-  score + group-max kernels (:mod:`..ops.topk_kernels`), over the whole
-  catalog in one call when the maxima fit ``_MERGE_BUFFER_BYTES`` (with
-  subgroup refinement, on the tensor cores in 3xTF32, each user's result
-  certified against the FP32 one and the few it cannot certify run again
-  in FP32), else chunk by chunk with a running merge. Phase 2 re-scores the
-  kept candidates in f32, drops seen items by id and takes the exact top-k;
+  score + group-max kernels (:mod:`..ops.topk_kernels`, on the tensor
+  cores in 3xTF32), over the whole catalog in one call when the maxima fit
+  ``_MERGE_BUFFER_BYTES`` (with subgroup refinement), else chunk by chunk
+  with a running merge. Each user's result is certified against the FP32
+  one, and the few it cannot certify run again in FP32. Phase 2 re-scores
+  the kept candidates in f32, drops seen items by id and takes the exact
+  top-k;
 * seen lists wider than ``_SERVE_MAX_POSTFILTER_SEEN``: chunked scoring
   with a per-chunk seen mask (:func:`topk_streamed_bigseen`).
 
@@ -38,6 +39,7 @@ no program cache.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -51,8 +53,10 @@ from ..ops.topk_kernels import (
     groupmax_supported,
     phase1_error_bound,
     score_groupmax,
+    score_groupmax_fp32,
     score_submax_groupmax,
     score_submax_groupmax_fp32,
+    split_reps,
 )
 from ..ops.sampling import WARP_CANDIDATES
 from ..utils.convert import params_from_numpy
@@ -288,6 +292,50 @@ def _submax_winners(
     return torch.gather(sids, 1, sp), torch.maximum(theta_g, theta_s)
 
 
+def _group_winners(
+    table: torch.Tensor,
+    kk: int,
+    u: int,
+    score,
+    *,
+    serve_chunk: int,
+    group: int,
+    single_pass: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of the group-only routes: ``score(rows, lo)`` gives the
+    group maxima ``[groupmax_rows, U]`` of a slab of the table starting at
+    row ``lo``. One call over the whole catalog (``single_pass``), or one per
+    ``serve_chunk`` rows with a running merge, for ``u`` users; both keep
+    ``kk + 1`` groups.
+    Returns ``(gids [U, kk], theta [U])``: the top ``kk`` group ids, and the
+    ``(kk+1)``-th maximum, the largest one left out (``-inf`` when every
+    group was kept). In the merge a list's ``(kk+1)``-th value only rises,
+    and it is at least the ``(kk+1)``-th of every chunk's candidates, so it
+    ends as the catalog's. Unfilled merge slots hold distinct group ids past
+    the catalog: never a real candidate. Each chunk is a view of the table;
+    the last is shorter, and the kernel masks its rows past ``n``."""
+    n = table.shape[0]
+    if single_pass:
+        gmax = score(table, 0)
+        vals, gids = (t.T for t in torch.topk(gmax, min(kk + 1, gmax.shape[0]), dim=0))
+    else:
+        groups_per_chunk = serve_chunk // group
+        num_chunks = -(-n // serve_chunk)
+        vals = torch.full((u, kk + 1), float("-inf"), device=table.device)
+        past = num_chunks * groups_per_chunk
+        gids = (past + torch.arange(kk + 1, device=table.device)).expand(u, kk + 1)
+        for ch in range(num_chunks):
+            lo = ch * serve_chunk
+            gm = score(table[lo : lo + serve_chunk], lo)[:groups_per_chunk]
+            cv, cp = torch.topk(gm, min(kk + 1, gm.shape[0]), dim=0)
+            mv = torch.cat([vals, cv.T], dim=1)
+            mg = torch.cat([gids, ch * groups_per_chunk + cp.T], dim=1)
+            vals, p = torch.topk(mv, kk + 1, dim=1)
+            gids = torch.gather(mg, 1, p)
+    theta = vals[:, kk] if vals.shape[1] > kk else vals.new_full((u,), float("-inf"))
+    return gids[:, :kk], theta
+
+
 def _rescore(
     table: torch.Tensor,
     reps_aug: torch.Tensor,
@@ -357,11 +405,13 @@ def topk_streamed(
     the k-th value aside. The other users run phase 1 again in FP32
     (:func:`..ops.topk_kernels.score_submax_groupmax_fp32`) and phase 2, and
     their rows are replaced; ``topk_streamed.rechecked_users`` counts them.
-    The ``group``-only single pass and the running merge score in FP32
-    (:func:`..ops.topk_kernels.score_groupmax`).
+    The ``group``-only single pass and the running merge score in 3xTF32 too
+    (:func:`..ops.topk_kernels.score_groupmax`, the reps split once for all
+    chunks) and keep ``kk + 1`` groups, whose last maximum is ``theta_u``
+    (:func:`_group_winners`); they certify the same way and recheck with
+    :func:`..ops.topk_kernels.score_groupmax_fp32`.
     """
     n, c_param = table.shape
-    dev = table.device
     u = reps.shape[0]
     num_chunks = -(-n // serve_chunk)
     group = min(group_target, serve_chunk)
@@ -395,46 +445,49 @@ def topk_streamed(
             break
     r = group // sub
 
-    if single_pass and r > 1:
-        # One kernel call streams the whole table once; then the certificate.
-        allsub, gmax = score_submax_groupmax(table, reps_aug, 0, n, sub, group)
-        sids, theta = _submax_winners(allsub, gmax, kk, r)
-        del allsub, gmax
-        vals, ids = _rescore(table, reps_aug, seen, sids, sub, k_out, phase2_buffer_bytes)
+    def certify(vals, ids, theta, redo_fn):
+        """Rows of the users the bound certifies stay; the others are
+        replaced by ``redo_fn(users)``, their phase 1 in FP32."""
         eps = phase1_error_bound(table, reps_aug)
         bound = torch.nextafter(theta + eps, torch.full_like(theta, float("inf")))
         certified = torch.isneginf(theta) | (vals[:, -1] >= bound)
         redo = torch.nonzero(~certified).flatten()
         topk_streamed.rechecked_users += int(redo.numel())
         if redo.numel():
+            vals[redo], ids[redo] = redo_fn(redo)
+        return vals, ids
+
+    if single_pass and r > 1:
+        # One kernel call streams the whole table once; then the certificate.
+        allsub, gmax = score_submax_groupmax(table, reps_aug, 0, n, sub, group)
+        sids, theta = _submax_winners(allsub, gmax, kk, r)
+        del allsub, gmax
+        vals, ids = _rescore(table, reps_aug, seen, sids, sub, k_out, phase2_buffer_bytes)
+
+        def redo_submax(redo):
             reps_r = reps_aug[redo].contiguous()
             allsub, gmax = score_submax_groupmax_fp32(table, reps_r, 0, n, sub, group)
             sids, _ = _submax_winners(allsub, gmax, kk, r)
             del allsub, gmax
-            vals[redo], ids[redo] = _rescore(
-                table, reps_r, seen[redo], sids, sub, k_out, phase2_buffer_bytes
-            )
-        return vals, ids
-    if single_pass:
-        gmax = score_groupmax(table, reps_aug, 0, n, group)
-        gids = torch.topk(gmax, min(kk, gmax.shape[0]), dim=0).indices.T  # [U, w1]
-    else:
-        # Running merge, chunk by chunk (sub == group here). Unfilled slots
-        # hold distinct group ids past the catalog: never a real candidate.
-        vals = torch.full((u, kk), float("-inf"), device=dev)
-        gids = (total_groups + torch.arange(kk, device=dev)).expand(u, kk)
-        offsets = torch.arange(serve_chunk, device=dev)
-        for ch in range(num_chunks):
-            lo = ch * serve_chunk
-            ids = (lo + offsets).clamp_(max=n - 1)  # clip: the tail repeats row n-1
-            tc = table.index_select(0, ids)
-            gm = score_groupmax(tc, reps_aug, lo, n, group)[:groups_per_chunk]
-            cv, cp = torch.topk(gm, min(kk, groups_per_chunk), dim=0)
-            mv = torch.cat([vals, cv.T], dim=1)
-            mg = torch.cat([gids, ch * groups_per_chunk + cp.T], dim=1)
-            vals, p = torch.topk(mv, kk, dim=1)
-            gids = torch.gather(mg, 1, p)
-    return _rescore(table, reps_aug, seen, gids, group, k_out, phase2_buffer_bytes)
+            return _rescore(table, reps_r, seen[redo], sids, sub, k_out, phase2_buffer_bytes)
+
+        return certify(vals, ids, theta, redo_submax)
+
+    # Group maxima only (sub == group): the single pass or the running merge.
+    winners = functools.partial(
+        _group_winners, table, kk, serve_chunk=serve_chunk, group=group, single_pass=single_pass
+    )
+    split = split_reps(reps_aug)  # once for every chunk call
+    gids, theta = winners(u, lambda rows, lo: score_groupmax(rows, reps_aug, lo, n, group, split=split))
+    del split
+    vals, ids = _rescore(table, reps_aug, seen, gids, group, k_out, phase2_buffer_bytes)
+
+    def redo_groups(redo):
+        reps_r = reps_aug[redo].contiguous()
+        gids, _ = winners(len(redo), lambda rows, lo: score_groupmax_fp32(rows, reps_r, lo, n, group))
+        return _rescore(table, reps_r, seen[redo], gids, group, k_out, phase2_buffer_bytes)
+
+    return certify(vals, ids, theta, redo_groups)
 
 
 topk_streamed.rechecked_users = 0

@@ -13,7 +13,8 @@ Counterparts of the Pallas probes of the JAX package's sparse step:
   candidate gather + score, ``scripts/cand_gather_probe.py`` (P3
   ``_make_vmem``, the table on chip; P4 ``pallas_dma_rows``, rows from
   device memory): :func:`cand_score_smem` when the whole table fits one
-  block's shared memory, else :func:`cand_score_rows`
+  block's shared memory (staged by the bulk-copy engine), else
+  :func:`cand_score_rows`
   (``csrc/cand_score.cu``).
 
 Tables are f32 or bf16; gathered rows and scores are f32. For CUDA tensors
@@ -34,8 +35,10 @@ from . import _build
 from .lstm_kernels import _require
 from .topk_kernels import _route
 
-# Shared memory one block may opt in to on the H100 (sm_90): 227 KB.
-SMEM_BYTES = 232_448
+# Table bytes P3 stages in one block's shared memory on the H100 (sm_90):
+# the 227 KB (232,448 bytes) a block may opt in to, less the 128 bytes
+# that hold its mbarrier and up to 16 bytes of alignment (csrc/cand_score.cu).
+SMEM_BYTES = 232_448 - 144
 _FNS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -163,7 +166,8 @@ def _cand_launch(haug, table, cand, name, route):
 def cand_score_smem(haug: torch.Tensor, table: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """:func:`cand_score_plain` with the whole table staged in shared memory
     (P3), for CUDA tensors; the table must satisfy
-    :func:`cand_score_fits_smem`."""
+    :func:`cand_score_fits_smem`. Each block stages the table by one bulk
+    copy."""
     if not _route(table, "cand_score_smem"):
         return cand_score_plain(haug, table, cand)
     if not cand_score_fits_smem(table):

@@ -10,18 +10,23 @@ Serving (phase 1 of the exact two-phase top-k in ``models/base.py``): a
 score is ``-inf`` unless its row is inside the catalog (``lo + i < n``) and
 inside the call (``i < C``), and only group maxima are kept:
 
-* :func:`score_groupmax` -- maxima over groups of ``group`` rows, FP32
-  (``csrc/score_groupmax.cu``);
+* :func:`score_groupmax` -- maxima over groups of ``group`` rows, on the
+  tensor cores in 3xTF32 (``csrc/score_submax_tc.cu``, its one-output
+  mode), for the group-only routes: the running merge, one catalog chunk a
+  call, and the group-only single pass; :func:`split_reps` splits the reps
+  once for all the chunk calls of a batch;
+* :func:`score_groupmax_fp32` -- the same maxima in FP32 FMAs
+  (``csrc/score_groupmax.cu``), for the users those routes cannot certify;
 * :func:`score_submax_groupmax` -- maxima over subgroups of ``sub`` rows
   and groups of ``group`` rows, from one pass, on the tensor cores in
-  3xTF32 (``csrc/score_submax_tc.cu``), with :func:`phase1_error_bound`
-  bounding how far its scores may lie from the FP32 scores that phase 2
-  recomputes;
+  3xTF32 (``csrc/score_submax_tc.cu``);
 * :func:`score_submax_groupmax_fp32` -- the same maxima in FP32 FMAs
   (``csrc/score_groupmax.cu``), which the serving path runs again for the
-  users whose top-k that bound cannot certify.
+  users whose top-k the bound cannot certify.
 
-All three return :func:`groupmax_rows` rows, the rows past ``C`` all
+:func:`phase1_error_bound` bounds how far the 3xTF32 scores may lie from
+the FP32 scores that phase 2 recomputes (both 3xTF32 kernels do the same
+arithmetic). All four return :func:`groupmax_rows` rows, the rows past ``C`` all
 ``-inf``, as the TPU functions do.
 
 Evaluation (the fused rank counter of ``evaluation.py``):
@@ -42,7 +47,7 @@ the plain versions are FP32.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -161,31 +166,127 @@ def _route(chunk_rows: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name} runs on cuda or cpu, not {chunk_rows.device}")
 
 
-def score_groupmax(
-    chunk_rows: torch.Tensor, reps_aug: torch.Tensor, lo: int, n: int, group: int
-) -> torch.Tensor:
-    """``[groupmax_rows(C, group), U]`` group maxima (module docstring).
-    ``chunk_rows`` may be the whole catalog (``lo = 0``) or any slab of it.
-    ``score_groupmax.launches`` counts the kernel's launches."""
+def _check_groupmax(chunk_rows, reps_aug, group, name) -> bool:
+    """Raises on shapes the kernels do not take; True for the kernel (CUDA
+    tensors), False for the plain version (CPU tensors)."""
     c, cc = chunk_rows.shape
     u = reps_aug.shape[0]
     if not groupmax_supported(c, cc, u, group):
-        raise ValueError(f"score_groupmax does not take group={group}, Cc={cc}, U={u}")
-    if not _route(chunk_rows, "score_groupmax"):
-        out = score_groupmax_plain(chunk_rows, reps_aug, lo, n, group)
-        return _pad_to(out, groupmax_rows(c, group))
-    out, _ = _launch(chunk_rows, reps_aug, lo, n, group, None, "score_groupmax")
-    score_groupmax.launches += 1
-    return out
+        raise ValueError(f"{name} does not take group={group}, Cc={cc}, U={u}")
+    return _route(chunk_rows, name)
 
 
-def _split_reps_scratch(u: int, cc: int, dev: torch.device) -> torch.Tensor:
-    """The scratch a 3xTF32 kernel splits ``reps_aug [u, cc]`` into, in the
-    layout of ``csrc/score_tile.cuh``."""
+def _groupmax_plain(chunk_rows, reps_aug, lo, n, group):
+    out = score_groupmax_plain(chunk_rows, reps_aug, lo, n, group)
+    return _pad_to(out, groupmax_rows(chunk_rows.shape[0], group))
+
+
+def _scratch_floats(u: int, cc: int) -> int:
+    """Floats of the split reps of ``u`` users of width ``cc`` (the layout
+    of ``csrc/score_tile.cuh``)."""
     lib = _build.library()
     lib.sbr_score_tile_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.sbr_score_tile_scratch_floats.restype = ctypes.c_longlong
-    return torch.empty((lib.sbr_score_tile_scratch_floats(u, cc),), dtype=torch.float32, device=dev)
+    return lib.sbr_score_tile_scratch_floats(u, cc)
+
+
+def _split_reps_scratch(u: int, cc: int, dev: torch.device) -> torch.Tensor:
+    """The scratch a 3xTF32 kernel splits ``reps_aug [u, cc]`` into."""
+    return torch.empty((_scratch_floats(u, cc),), dtype=torch.float32, device=dev)
+
+
+def _check_reps(reps_aug, u, cc, dev, name) -> None:
+    if reps_aug.device != dev or reps_aug.dtype != torch.float32 or tuple(reps_aug.shape) != (u, cc):
+        raise ValueError(
+            f"{name}: reps_aug must be float32 [{u}, {cc}] on {dev}, got "
+            f"{reps_aug.dtype} {tuple(reps_aug.shape)} on {reps_aug.device}"
+        )
+    if not reps_aug.is_contiguous():
+        raise ValueError(f"{name}: reps_aug must be contiguous")
+
+
+def split_reps(reps_aug: torch.Tensor) -> Optional[torch.Tensor]:
+    """``reps_aug [U, Cc]`` split into TF32 hi and lo parts in the layout
+    of ``csrc/score_tile.cuh``, for :func:`score_groupmax`'s ``split``:
+    the running merge splits once per batch, not once per chunk call. CPU
+    tensors need no split (the plain version reads ``reps_aug``) and get
+    ``None``. The split is K3's prologue, as it is inside K4's and K5's
+    calls, so it has no launch counter of its own."""
+    if not _route(reps_aug, "split_reps"):
+        return None
+    u, cc = reps_aug.shape
+    _check_reps(reps_aug, u, cc, reps_aug.device, "split_reps")
+    scratch = _split_reps_scratch(u, cc, reps_aug.device)
+    fn = _build.library().sbr_score_tile_split
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(reps_aug.device):
+        stream = torch.cuda.current_stream(reps_aug.device).cuda_stream
+        status = fn(reps_aug.data_ptr(), scratch.data_ptr(), u, cc, stream)
+    _build.check(status, "split_reps")
+    return scratch
+
+
+def score_groupmax(
+    chunk_rows: torch.Tensor,
+    reps_aug: torch.Tensor,
+    lo: int,
+    n: int,
+    group: int,
+    split: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``[groupmax_rows(C, group), U]`` group maxima (module docstring).
+    ``chunk_rows`` may be the whole catalog (``lo = 0``) or any slab of it.
+    On the card the scores are 3xTF32 (``csrc/score_submax_tc.cu``), within
+    :func:`phase1_error_bound` of the FP32 scores, from ``split``:
+    :func:`split_reps` of these ``reps_aug``, done here when not given.
+    ``score_groupmax.launches`` counts the kernel's launches."""
+    c, cc = chunk_rows.shape
+    u = reps_aug.shape[0]
+    if not _check_groupmax(chunk_rows, reps_aug, group, "score_groupmax"):
+        return _groupmax_plain(chunk_rows, reps_aug, lo, n, group)
+    dev = chunk_rows.device
+    if chunk_rows.dtype == torch.float32:
+        fn = _build.library().sbr_score_groupmax_tc_f32
+    elif chunk_rows.dtype == torch.bfloat16:
+        fn = _build.library().sbr_score_groupmax_tc_bf16
+    else:
+        raise ValueError(f"score_groupmax: rows must be float32 or bfloat16, got {chunk_rows.dtype}")
+    _check_reps(reps_aug, u, cc, dev, "score_groupmax")
+    if not chunk_rows.is_contiguous():
+        raise ValueError("score_groupmax: rows must be contiguous")
+    if split is None:
+        split = split_reps(reps_aug)
+    elif (split.device != dev or split.dtype != torch.float32 or split.ndim != 1
+          or split.numel() != _scratch_floats(u, cc)):
+        raise ValueError(f"score_groupmax: split is not split_reps of float32 [{u}, {cc}] reps on {dev}")
+    gmax = torch.empty((groupmax_rows(c, group), u), dtype=torch.float32, device=dev)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(
+            chunk_rows.data_ptr(), split.data_ptr(), gmax.data_ptr(), c, cc, u, int(lo), int(n), group, stream,
+        )
+    _build.check(status, "score_groupmax")
+    score_groupmax.launches += 1
+    return gmax
+
+
+def score_groupmax_fp32(
+    chunk_rows: torch.Tensor, reps_aug: torch.Tensor, lo: int, n: int, group: int
+) -> torch.Tensor:
+    """:func:`score_groupmax` with FP32 scores (``csrc/score_groupmax.cu``,
+    FP32 FMAs outside the tensor cores). ``score_groupmax_fp32.launches``
+    counts the kernel's launches."""
+    if not _check_groupmax(chunk_rows, reps_aug, group, "score_groupmax_fp32"):
+        return _groupmax_plain(chunk_rows, reps_aug, lo, n, group)
+    out, _ = _launch(chunk_rows, reps_aug, lo, n, group, None, "score_groupmax_fp32")
+    score_groupmax_fp32.launches += 1
+    return out
 
 
 def _check_submax(chunk_rows, reps_aug, sub, group, name) -> None:
@@ -229,13 +330,9 @@ def score_submax_groupmax(
         fn = _build.library().sbr_score_submax_tc_bf16
     else:
         raise ValueError(f"score_submax_groupmax: rows must be float32 or bfloat16, got {chunk_rows.dtype}")
-    if reps_aug.device != dev or reps_aug.dtype != torch.float32 or tuple(reps_aug.shape) != (u, cc):
-        raise ValueError(
-            f"score_submax_groupmax: reps_aug must be float32 [{u}, {cc}] on {dev}, got "
-            f"{reps_aug.dtype} {tuple(reps_aug.shape)} on {reps_aug.device}"
-        )
-    if not (chunk_rows.is_contiguous() and reps_aug.is_contiguous()):
-        raise ValueError("score_submax_groupmax: rows and reps_aug must be contiguous")
+    _check_reps(reps_aug, u, cc, dev, "score_submax_groupmax")
+    if not chunk_rows.is_contiguous():
+        raise ValueError("score_submax_groupmax: rows must be contiguous")
     scratch = _split_reps_scratch(u, cc, dev)
     smax = torch.empty((groupmax_rows(c, sub), u), dtype=torch.float32, device=dev)
     gmax = torch.empty((groupmax_rows(c, group), u), dtype=torch.float32, device=dev)
@@ -310,7 +407,8 @@ def phase1_gamma(cc: int, rows_dtype: torch.dtype, tensor_cores: bool) -> float:
 
 def phase1_error_bound(table: torch.Tensor, reps_aug: torch.Tensor) -> torch.Tensor:
     """``eps [U]`` (f32): for every row ``i`` of ``table [N, Cc]``, the
-    score :func:`score_submax_groupmax` gives user ``u`` lies within
+    score :func:`score_submax_groupmax` or :func:`score_groupmax` gives
+    user ``u`` lies within
     ``eps[u]`` of the FP32 score ``rows[i] . reps_aug[u]`` that phase 2
     recomputes: ``eps[u] = gamma * sum_k |reps_aug[u, k]| M_k`` with ``M_k =
     max_i |table[i, k]|`` and ``gamma`` from :func:`phase1_gamma` (3xTF32
@@ -421,6 +519,7 @@ def score_count_ge(
 
 
 score_groupmax.launches = 0
+score_groupmax_fp32.launches = 0
 score_submax_groupmax.launches = 0
 score_submax_groupmax_fp32.launches = 0
 score_count_ge.launches = 0
