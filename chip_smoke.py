@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``sbr_rs_tpu_torch/csrc`` and drives the
-LSTM serving, evaluation and training paths, one phase per printed line:
+LSTM serving, evaluation and training paths, then those of the EWMA, GRU and
+attention families, one phase per printed line:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. the kernel build and its time;
@@ -106,10 +107,32 @@ LSTM serving, evaluation and training paths, one phase per printed line:
    against the per-user loop;
 11. fit-20M-bf16, the ``items20m_bf16`` configuration: the same at
    20,000,000 items with a bf16 table and bf16 state: a warm-up fit and a
-   timed fit.
+   timed fit;
+12-14. the EWMA (12), GRU (13) and causal-attention (14) families, whose
+   towers are plain PyTorch, each through its entry points at full width:
+   one training step on the card against the same step on the CPU (the
+   same numpy parameters, batch and candidates; the criterion and the tuned
+   WARP configurations; loss, gradients, updated values and WARP flips as
+   in phase 7); the criterion ``fit`` cell of ``benches/benchmark.py``
+   (dim 32, T=128, Hinge, Adagrad, 3 epochs, on a 10,000-interaction
+   sample of the ML-100K-shaped data: two fresh fits from one seed bit for
+   bit, the second the warm-up of 10 timed fits (GRU 2), and a profiled
+   window of 10 steps (GRU 3) with its launches a step); the family's tuned
+   WARP configuration of ``tests/test_integration_ml100k.py`` on phase 9's
+   data, 4 epochs (GRU 2; the tests run 40, 40 and 20): a falling loss,
+   ``recommend_batch(k=10)`` for 64 histories served twice alike, MRR / hit
+   rate@10 / NDCG@10 on the held-out users above the untrained model's MRR,
+   a profiled window of steps (attention also with dropout 0.2, which must
+   draw from its dropout generator); serve-10M's shape (dim 127, T=32,
+   10,000,000 items, 4096 users: users/s, the users the certificate
+   rechecked, a profiled batch, 256 users against the plain reference with
+   the family's tower, itself plain PyTorch); and eval-10M-512 (µs per
+   user, a profiled call, 64 users' ranks against the per-user loop). Each
+   path's counters must show P1 and P2 (fits), P3 (WARP fits), K4
+   (serving) and K5 (evaluation) at work, and no launch of K1 or K2.
 
 It then prints the kernels' JSON line (each kernel's launches on the main
-paths, largest error, card and plain times, its bound on this card, by the
+paths, in all and by path, largest error, card and plain times, its bound on this card, by the
 route it takes: FP32 FMAs, or 3xTF32 with the FP32 bound beside as
 ``bound_fp32_ms``, and the time of one PyTorch call that computes the same
 function, where there is one) and, last, the contract line
@@ -167,6 +190,12 @@ G_FLOOR = 1e-5
 # lr * g / sqrt(g^2 + eps) multiplies that by up to 5e3 at |g| = 1e-5, so
 # phase 7b checks updated values from this |g| up (gradients everywhere).
 G_FLOOR_SPARSE = 1e-4
+# The same run sums made on two devices (phases 12-14, card against CPU): the
+# two cumsums round differently, and a row's sum, the difference of two
+# prefixes of its column, differs by a few ulp of the prefixes' magnitude,
+# at most the column's sum_rows |g|. Measured: 1 ulp (attention's criterion
+# step, card against CPU; and on the CPU alone against an f64 cumsum).
+RUN_SUM_ULPS = 4
 
 # (T, B, D, variants) of K2's checks: the ml1m fit, the bench.py fit, an odd
 # D whose w_h (Normal) is beyond a block's shared memory (a cluster of two
@@ -200,6 +229,19 @@ P3_POSITIONS = 8192
 # as a training step does.
 COLD_SETS = 8
 FIT_USERS, FIT_ITEMS_PER_USER, FIT_T = 20_000, 50, 64
+# Phases 12-14: the EWMA, GRU and attention families. The criterion fit's
+# sample, its timed fits (GRU's cut to CRITERION_REPEATS_GRU: each of its
+# fits runs an eager loop over T=128 forward and backward, ~5,600 launches
+# a step, 9-14 s a fit), and the tuned WARP fits' epochs (the tests' 40, 40
+# and 20 cut to 4, GRU's to 2).
+FAMILIES = ("ewma", "gru", "attention")
+CRITERION_SAMPLE = 10_000
+CRITERION_REPEATS = 10
+CRITERION_REPEATS_GRU = 2
+WARP_EPOCHS = {"ewma": 4, "gru": 2, "attention": 4}
+# Steps a family's fit profile traces (a window: tracing costs the host
+# about 0.5 ms a launch, and GRU's step launches ~5,600 kernels).
+PROFILE_STEPS = {"ewma": 10, "gru": 3, "attention": 10}
 # WARP selections under two towers may flip only where a candidate's margin
 # 1 - pos + cand lies this close to 0.
 TOL_MARGIN = 1e-4
@@ -307,6 +349,81 @@ def fit_bench_split():
     return sbr_data.user_based_split(raw, np.random.default_rng(42), 0.2)
 
 
+def criterion_sample():
+    """The criterion ``fit`` cell's data (``benches/benchmark.py:40-49``): a
+    10,000-interaction sample, drawn by ``default_rng(0).choice``, of
+    ML-100K-shaped synthetic data (943 x 1682 x 106)."""
+    from sbr_rs_tpu_torch import data as sbr_data
+    from sbr_rs_tpu_torch import datasets
+
+    raw = datasets.synthetic_interactions(943, BENCH_ITEMS, 106, rng=0)
+    idx = np.random.default_rng(0).choice(len(raw), size=CRITERION_SAMPLE, replace=False)
+    return sbr_data.Interactions(
+        raw.num_users, raw.num_items, raw.user_ids[idx], raw.item_ids[idx], raw.timestamps[idx]
+    ).to_compressed()
+
+
+def family_hyper(family, num_items, seq_len):
+    """``family``'s (``"ewma"``, ``"gru"``, ``"attention"``) hyperparameters."""
+    from sbr_rs_tpu_torch import models
+
+    return getattr(models, family).Hyperparameters(num_items, seq_len)
+
+
+def criterion_model(family, dev):
+    """The criterion ``fit`` cell's model (``benches/benchmark.py:52-64``):
+    dim 32, T=128, Hinge, Adagrad, lr 0.16, l2 4e-4, 3 epochs, seed 0 (the
+    batch of 32 and the unpacked rows are the defaults)."""
+    from sbr_rs_tpu_torch.models import Loss, Optimizer
+
+    return (
+        family_hyper(family, BENCH_ITEMS, 128)
+        .embedding_dim(32)
+        .learning_rate(0.16)
+        .l2_penalty(4e-4)
+        .loss(Loss.HINGE)
+        .optimizer(Optimizer.ADAGRAD)
+        .num_epochs(3)
+        .from_seed(0)
+        .build(dev)
+    )
+
+
+def tuned_warp_model(family, dev, dropout=0.0):
+    """The family's tuned WARP configuration of
+    ``tests/test_integration_ml100k.py`` (ewma_warp :107-111, GRU :264-274,
+    attention :309-321; seed 42), with its epochs cut to WARP_EPOCHS."""
+    from sbr_rs_tpu_torch.models import Loss, Optimizer
+
+    seq_len, batch, lr, l2 = {
+        "ewma": (128, 16, 0.06, 0.016), "gru": (128, 16, 0.01, 0.03), "attention": (32, 64, 3e-3, 3e-4),
+    }[family]
+    hp = (
+        family_hyper(family, BENCH_ITEMS, seq_len)
+        .embedding_dim(32)
+        .learning_rate(lr)
+        .l2_penalty(l2)
+        .loss(Loss.WARP)
+        .optimizer(Optimizer.ADAM)
+        .num_epochs(WARP_EPOCHS[family])
+        .batch_size(batch)
+        .lr_schedule("cosine")
+        .from_seed(42)
+    )
+    if family == "ewma":
+        hp = hp.alpha_init(2.0)
+    if family == "attention":
+        hp = hp.num_layers(1).num_heads(1).dropout(dropout)
+    return hp.build(dev)
+
+
+def family_serving_model(family, num_items, dev, seed=42):
+    """serve-10M's shape for ``family``: dim 127, T=32, an f32 table of
+    ``num_items`` items, weights from ``seed`` (attention: 2 layers, one head,
+    the only count that divides 127)."""
+    return family_hyper(family, num_items, SEQ_LEN).embedding_dim(DIM).from_seed(seed).build(dev)
+
+
 def cand_inputs(n_rows, c, dtype, offset, dev, gen):
     """WARP's candidate-score inputs for P3/P4: a table ``[n_rows, c]`` (a
     view ``offset`` rows into its storage), ``haug [P3_POSITIONS, c]`` and
@@ -360,8 +477,15 @@ def main() -> None:
     from sbr_rs_tpu_torch.ops import row_kernels as rowk
     from sbr_rs_tpu_torch.ops import topk_kernels as tk
     from sbr_rs_tpu_torch.ops.sampling import warp_select
+    from sbr_rs_tpu_torch.utils.convert import params_to_numpy
+    from sbr_rs_tpu_torch.utils.tree import flatten, map_leaves
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def mark(label):
+        """The time since the start, at the start of a phase."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {label}", flush=True)
     # Full f32 for every plain matmul here (the references must not round
     # through TF32), except where phase 4 serves with the caller's flag on.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -380,6 +504,7 @@ def main() -> None:
     )
 
     # -- phase 2: build ---------------------------------------------------------
+    mark("phase 2")
     t0 = time.perf_counter()
     _build.library()
     print(
@@ -467,6 +592,7 @@ def main() -> None:
             )
 
     # -- phase 3: kernels against their plain versions ----------------------------
+    mark("phase 3")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def geometry(b, d, coupled, backward=False):
@@ -1053,6 +1179,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 4: the serving path at 10M items ------------------------------------
+    mark("phase 4")
     t0 = time.perf_counter()
     model = serving_model(N_ITEMS, dev)
     torch.cuda.synchronize()
@@ -1130,19 +1257,28 @@ def main() -> None:
     warp_kernels = training_kernels + ("cand_score_smem",)  # fit-bench: the table fits shared memory
     sparse_kernels = training_kernels + ("scatter_add_rows", "cand_score_rows")
     launches = dict.fromkeys(counters, 0)  # summed over the main-path runs
+    launches_by_path = {name: {} for name in counters}  # kernel -> {path: launches}
+    lstm_kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_dwh")
 
     def zero_counters():
         for fn in counters.values():
             fn.launches = 0
 
-    def read_counters(path, kernels):
+    def read_counters(path, kernels, absent=()):
+        """Fail unless each of ``kernels`` launched since the counters were
+        zeroed and none of ``absent`` did; add the counts to the totals."""
         got = {name: counters[name].launches for name in counters}
         print(f"launches on the {path}: {got}", flush=True)
         for name in kernels:
             if got[name] <= 0:
                 raise SmokeFailure(f"the {path} never launched {name}")
+        for name in absent:
+            if got[name]:
+                raise SmokeFailure(f"the {path} launched {name} {got[name]} times")
         for name, count in got.items():
             launches[name] += count
+            if count:
+                launches_by_path[name][path] = count
 
     zero_counters()
     model.recommend_batch(histories, k=K)  # warm-up
@@ -1205,21 +1341,23 @@ def main() -> None:
 
     # -- checks against the plain reference ------------------------------------------
     check_lists("phase 4", ids, histories, N_ITEMS)
+    normal_lstm = functools.partial(lstm_apply, coupled=False)
     check_against_reference(
-        "phase 4", model, histories[:REF_USERS], ids[:REF_USERS], vals[:REF_USERS], lstm_apply, torch
+        "phase 4", model, histories[:REF_USERS], ids[:REF_USERS], vals[:REF_USERS], normal_lstm, torch
     )
     check_lists("phase 5", ids_m, hist_m, N_ITEMS_MERGE)
-    check_against_reference("phase 5", model_merge, hist_m, ids_m, vals_m, lstm_apply, torch)
+    check_against_reference("phase 5", model_merge, hist_m, ids_m, vals_m, normal_lstm, torch)
     check_lists("phase 5b", ids_r, hist_m, N_ITEMS_MERGE)
-    check_against_reference("phase 5b", model_rep, hist_m, ids_r, vals_r, lstm_apply, torch)
+    check_against_reference("phase 5b", model_rep, hist_m, ids_r, vals_r, normal_lstm, torch)
     check_lists("phase 5c", ids_c, hist_m, N_ITEMS_MERGE)
-    check_against_reference("phase 5c", model_rep, hist_m, ids_c, vals_c, lstm_apply, torch)
+    check_against_reference("phase 5c", model_rep, hist_m, ids_c, vals_c, normal_lstm, torch)
     del model_rep, tab_rep, model_merge
 
     def profiled(label, fn, top):
         """Run ``fn`` once under ``torch.profiler`` and print its wall time,
         the device's busy time (sum of kernel self times), the idle share,
-        the kernel launches and the ``top`` kernels by device time."""
+        the kernel launches and the ``top`` kernels by device time. Returns
+        ``(wall_ms, busy_ms, launches)``."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
@@ -1237,8 +1375,10 @@ def main() -> None:
         )
         for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:top]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:100]}")
+        return wall_ms, busy_ms, sum(e.count for e in on_device)
 
     # -- phase 5d: serve-50M-merge, the running merge at default budgets ----------
+    mark("phase 5d")
     del model, table
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1276,7 +1416,7 @@ def main() -> None:
              top=10)
     check_lists("phase 5d", ids_50, hist_50, N_ITEMS_50M)
     check_against_reference(
-        "phase 5d", model_50m, hist_50[:REF_USERS], ids_50[:REF_USERS], vals_50[:REF_USERS], lstm_apply, torch
+        "phase 5d", model_50m, hist_50[:REF_USERS], ids_50[:REF_USERS], vals_50[:REF_USERS], normal_lstm, torch
     )
     del model_50m
     torch.cuda.empty_cache()
@@ -1284,6 +1424,7 @@ def main() -> None:
     table = model._params["item_table"]
 
     # -- phase 6: where a batch's device time goes (a separate traced run) ----------
+    mark("phase 6")
     profiled(
         f"phase 6 profile, one batch at {N_ITEMS} items",
         lambda: model.recommend_batch(histories, k=K), top=8,
@@ -1291,6 +1432,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 6b: the evaluation path at 10M items ----------------------------------
+    mark("phase 6b")
     tests = {u: eval_test(u) for u in EVAL_USERS}
     zero_counters()
     mrr_calls = 0
@@ -1372,6 +1514,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 6c: fused counter against chunked counter, 200,000 items ---------------
+    mark("phase 6c")
     model = (
         lstm.Hyperparameters(N_ITEMS_FUSED, SEQ_LEN)
         .embedding_dim(DIM)
@@ -1416,24 +1559,23 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- the training path -------------------------------------------------------------
+    mark("the training path")
     ml1m_model = functools.partial(fit_ml1m_model, dev)
     bench_model = functools.partial(fit_bench_model, dev)
 
     def check_refit(label, make, data):
         """Two fresh models from one seed, one fit each: the dense table
         step sums in a fixed order, so the tables and towers are equal bit
-        for bit."""
+        for bit. Returns the second model."""
         a, b = make(), make()
         a.fit(data)
         b.fit(data)
-        names = ["item_table", *(f"tower.{k}" for k in a._params["tower"])]
-        pairs = [(a._params["item_table"], b._params["item_table"])] + [
-            (a._params["tower"][k], b._params["tower"][k]) for k in a._params["tower"]
-        ]
-        differ = [name for name, (x, y) in zip(names, pairs) if not torch.equal(x, y)]
+        pa, pb = flatten(a._params), flatten(b._params)
+        differ = [name for (name, x), (_, y) in zip(pa, pb) if not torch.equal(x, y)]
         if differ:
             raise SmokeFailure(f"{label}: two fits from one seed differ in {differ}")
         print(f"  {label}: two fits from one seed give equal tables and towers, bit for bit", flush=True)
+        return b
 
     t0 = time.perf_counter()
     ml1m_data = fit_ml1m_data()
@@ -1445,6 +1587,7 @@ def main() -> None:
     )
 
     # -- phase 7: one step, kernel tower against plain tower -------------------------------
+    mark("phase 7")
     def ulp(t):
         """One unit in the last place of each entry of a bf16 tensor, 0 for
         an f32 one: two f32 values a rounding apart may store one ulp apart."""
@@ -1462,17 +1605,24 @@ def main() -> None:
         acc = state["acc"].float()
         return acc.sqrt(), (acc + ulp(state["acc"])).sqrt() - acc.sqrt()
 
-    def check_update(name, got, want, s_got, s_want, g_floor=G_FLOOR):
+    def check_update(name, got, want, s_got, s_want, g_floor=G_FLOOR, run_sum_ulps=0):
         """The gradients agree everywhere (1e-5 + 2e-4 |g|). The updated
         values agree within TOL_STEP_RTOL/ATOL wherever |g| >= g_floor; below
         it the first step's lr * g / (|g| + eps) turns the rounding noise of a
         nearly cancelled gradient into a different update, and those entries
         are only counted. A bf16 table or state may also differ by one ulp of
-        its stored value. Returns (max diff on checked entries, count
-        excluded)."""
+        its stored value. ``run_sum_ulps``: the table's gradients also differ
+        by that many ulp of their column's sum_rows |g| (the run sums'
+        rounding, when two devices' cumsums make them; RUN_SUM_ULPS), and
+        the values are compared where |g| is at least 8 times that. Returns
+        (max diff on checked entries, count excluded)."""
         slack = ulp(want)
         got, want = got.float(), want.float()
         (g_got, _), (g_want, g_slack) = step_grad(s_got), step_grad(s_want)
+        if run_sum_ulps:
+            col = g_want.abs().sum(dim=0)
+            g_slack = g_slack + run_sum_ulps * torch.where(col > 0, torch.exp2(torch.floor(torch.log2(col)) - 23), col)
+            g_floor = torch.clamp(8 * g_slack, min=g_floor)
         gbad = (g_got - g_want).abs() > 1e-5 + 2e-4 * g_want.abs() + g_slack
         if bool(gbad.any()):
             raise SmokeFailure(
@@ -1495,18 +1645,19 @@ def main() -> None:
         b, t1 = batch["stream"].shape
         with torch.no_grad():
             rows = rowk.gather_rows(table, batch["stream"].reshape(-1)).reshape(b, t1, -1)
-            hidden = tower(params["tower"], rows[:, : t1 - 1, :-1], starts=batch["starts"])
+            hidden = tower(params["tower"], rows[:, : t1 - 1, :-1], starts=batch.get("starts"))
             haug = torch.cat([hidden, hidden.new_ones(hidden.shape[:2] + (1,))], dim=-1)
             pos = (haug * rows[:, 1:]).sum(-1)
             scores = rowk.cand_score(haug.reshape(b * (t1 - 1), -1), table, cand.reshape(b * (t1 - 1), -1))
         return warp_select(pos, scores.reshape(cand.shape)), 1.0 - pos[..., None] + scores.reshape(cand.shape)
 
     def result_of(params, state):
-        """Copies of a step's updated tensors and their optimizer state."""
+        """Copies of a step's updated tensors and their optimizer state, by
+        path (the tower's leaves by their tree paths)."""
         return {
             "item_table": (params["item_table"].clone(), {k: v.clone() for k, v in state["item_table"].items()}),
-            **{k: (v.clone(), {n_: s_.clone() for n_, s_ in state["tower"][k].items()})
-               for k, v in params["tower"].items()},
+            **{path: (v.clone(), {n_: s_.clone() for n_, s_ in state["tower"][path].items()})
+               for path, v in flatten(params["tower"])},
         }
 
     def step_inputs(model, mat):
@@ -1514,17 +1665,16 @@ def main() -> None:
         hp = model.hyper
         stream, mask, starts, n, _ = model._windows(mat)
         rows = torch.arange(min(hp._batch_size, n), device=dev)
-        batch = {"stream": stream[rows], "mask": mask[rows], "starts": starts[rows]}
+        batch = {"stream": stream[rows], "mask": mask[rows]}
+        if starts is not None:
+            batch["starts"] = starts[rows]
         k_cand = 5 if hp._loss == Loss.WARP else 1
         cand = torch.randint(0, hp._num_items, (len(rows), hp._max_sequence_length, k_cand),
                              generator=gen, device=dev)
         return batch, cand
 
     def fresh_params(model):
-        return {
-            "item_table": model._params["item_table"].clone(),
-            "tower": {k: v.clone() for k, v in model._params["tower"].items()},
-        }
+        return map_leaves(torch.clone, model._params)
 
     for label, make, mat in (("ml1m", ml1m_model, ml1m_data), ("bench", bench_model, bench_data)):
         model = make()
@@ -1581,6 +1731,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 7b: the sparse table update against the dense one -------------------------
+    mark("phase 7b")
     for label, make, mat in (
         ("bench (Adagrad, f32 table)", bench_model, bench_data),
         ("ml1m (Adam, bf16 table and state)", lambda: ml1m_model("bfloat16"), ml1m_data),
@@ -1617,6 +1768,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 8: fit at full width, the ml1m configuration ---------------------------------
+    mark("phase 8")
     model = ml1m_model()
     warm = model.fit(ml1m_data)
     wall_warm = model.history.wall_s
@@ -1638,6 +1790,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 9: the bench.py configuration, then serving from it ----------------------------
+    mark("phase 9")
     model = bench_model()
     first = model.fit(bench_data)
     h0 = model.history
@@ -1691,6 +1844,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phases 10 and 11: sparse training at 10M (f32) and 20M (bf16) items ---------------
+    mark("phases 10 and 11")
     def items_model(num_items, dtype):
         """``benches/large_scale.py bench_items`` at dim 127, as ``items10m``
         and ``items20m_bf16`` build it (the LSTM variant left at its default)."""
@@ -1781,6 +1935,238 @@ def main() -> None:
         del model, mat
         torch.cuda.empty_cache()
 
+    # -- phases 12-14: the EWMA, GRU and attention families ----------------------------------
+    mark("phases 12-14")
+    # Each family's tower is plain PyTorch (no Pallas kernel stands behind it
+    # in the JAX package); its paths still run the ported kernels: P1 and P2
+    # in every dense step, P3 in the WARP steps, K4 when serving, K5 in the
+    # evaluation, and never K1 or K2.
+    crit_data = criterion_sample()
+    warp_data = bench_train.to_compressed()
+    held_out = bench_test.to_compressed()
+    ptr, items = warp_data.user_pointers, warp_data.item_ids
+    hist_t = [items[ptr[u] : ptr[u + 1]].tolist() for u in range(len(ptr) - 1) if ptr[u + 1] > ptr[u]][:64]
+    fit_kernels = ("gather_rows", "scatter_add_rows")
+
+    def profiled_steps(label, model, mat, steps):
+        """A window of ``model``'s fit on ``mat`` under ``torch.profiler``:
+        ``steps`` steps on its first batches with fresh candidates, after one
+        warm-up step (the host traces a launch in about 0.5 ms, and a whole
+        eager fit launches 45,000 to 500,000 kernels). Prints per step the
+        wall, the device's busy time and the launches, the idle share and
+        the top kernels."""
+        hp = model.hyper
+        stream, mask, starts, n, _ = model._windows(mat)
+        size = min(hp._batch_size, n)
+        k_cand = 5 if hp._loss == Loss.WARP else 1
+        step = engine.make_train_step(model._engine_config(), model._tower_fn(), total_steps=steps + 1,
+                                      generator=model._dropout_generator)
+        state = engine.init_opt_state(hp._optimizer, model._params)
+        batches = []
+        for i in range(steps + 1):
+            rows = torch.arange(i * size, (i + 1) * size, device=dev) % n
+            batch = {"stream": stream[rows], "mask": mask[rows]}
+            if starts is not None:
+                batch["starts"] = starts[rows]
+            cand = torch.randint(0, hp._num_items, (size, hp._max_sequence_length, k_cand), generator=gen,
+                                 device=dev)
+            batches.append((batch, cand))
+
+        def run(window):
+            for batch, cand in window:
+                step(model._params, state, batch, cand)
+            torch.cuda.synchronize()
+
+        run(batches[:1])
+        wall_ms, busy_ms, n_launch = profiled(f"{label} ({steps} steps)", lambda: run(batches[1:]), top=8)
+        print(f"  a step: wall {wall_ms / steps:.2f} ms, device busy {busy_ms / steps:.3f} ms, "
+              f"{n_launch / steps:.0f} device launches", flush=True)
+
+    for phase, family in zip(("12", "13", "14"), FAMILIES):
+        t_phase = time.perf_counter()
+        mark(f"phase {phase} {family} steps, card against CPU")
+
+        # One training step on the card against the same step on the CPU:
+        # the same numpy parameters, batch and candidates.
+        for label, make, mat in (
+            ("criterion", functools.partial(criterion_model, family), crit_data),
+            ("tuned WARP", functools.partial(tuned_warp_model, family), warp_data),
+        ):
+            model, cpu_model = make(dev), make("cpu")
+            cpu_model.load_numpy_params(params_to_numpy(model))
+            hp = model.hyper
+            batch, cand = step_inputs(model, mat)
+            runs = {"card": (model, batch, cand), "cpu": (cpu_model, {k: v.cpu() for k, v in batch.items()}, cand.cpu())}
+            flips = 0
+            if hp._loss == Loss.WARP:
+                (ck, mk), (cp, mp) = [
+                    [x.to(dev) for x in warp_choices(m._params, m._tower_fn(), b, c)] for m, b, c in runs.values()
+                ]
+                flipped = (ck != cp) & (batch["mask"] > 0)
+                near = (torch.minimum(mk.abs(), mp.abs()) <= TOL_MARGIN).any(dim=-1)
+                flips = int(flipped.sum())
+                if bool((flipped & ~near).any()):
+                    raise SmokeFailure(f"phase {phase} {family} {label}: a WARP selection flips away from the margin")
+            out = {}
+            for where, (m, b, c) in runs.items():
+                params = fresh_params(m)
+                state = engine.init_opt_state(hp._optimizer, params)
+                step = engine.make_train_step(m._engine_config(), m._tower_fn())
+                params, state, loss = step(params, state, b, c)
+                out[where] = (map_leaves(lambda v: v.to(dev), result_of(params, state)), float(loss))
+                if where == "card":
+                    out["ms"] = time_ms(lambda: step(params, state, b, c), reps=3)
+            (r_k, loss_k), (r_p, loss_p) = out["card"], out["cpu"]
+            if not abs(loss_k - loss_p) <= TOL_STEP_LOSS * abs(loss_p):
+                raise SmokeFailure(f"phase {phase} {family} {label}: card loss {loss_k} against CPU {loss_p}")
+            if flips:
+                print(f"phase {phase} {family} step ({label}): card loss {loss_k:.6f} vs CPU {loss_p:.6f}; updates "
+                      f"not compared after {flips} near-margin WARP flips; card step {out['ms']:.2f} ms", flush=True)
+            else:
+                checked = {
+                    k: check_update(f"phase {phase} {family} {label} {k}", r_k[k][0], r_p[k][0], r_k[k][1], r_p[k][1],
+                                    run_sum_ulps=RUN_SUM_ULPS if k == "item_table" else 0)
+                    for k in r_k
+                }
+                print(
+                    f"phase {phase} {family} step ({label}, {hp._loss.value}/{hp._optimizer.value}): card loss "
+                    f"{loss_k:.6f} vs CPU {loss_p:.6f}; gradients agree; updated values max diff "
+                    f"{max(e for e, _ in checked.values()):.3e} where |g| >= {G_FLOOR:.0e} (the table: and >= 8x "
+                    f"its {RUN_SUM_ULPS} run-sum ulps), "
+                    f"{sum(c for _, c in checked.values())} entries below it beyond atol; WARP flips {flips}; "
+                    f"card step {out['ms']:.2f} ms", flush=True,
+                )
+            del model, cpu_model, out, r_k, r_p, params, state
+
+        # The criterion fit cell: two fresh fits from one seed, bit for bit;
+        # the second model's fit is the warm-up of the timed fits and the
+        # profiled fit that follow on it.
+        mark(f"phase {phase} {family} criterion fit")
+        model = check_refit(f"phase {phase} {family} criterion", functools.partial(criterion_model, family, dev),
+                            crit_data)
+        repeats = CRITERION_REPEATS_GRU if family == "gru" else CRITERION_REPEATS
+        zero_counters()
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            model.fit(crit_data)
+            times.append(time.perf_counter() - t0)
+        read_counters(f"{family} criterion fit", fit_kernels, absent=lstm_kernels)
+        h = model.history
+        steps = h.num_epochs * -(-model._windows(crit_data)[3] // model.hyper._batch_size)
+        mean = statistics.mean(times)
+        print(
+            f"phase {phase} {family} criterion fit (dim 32, T=128, Hinge/Adagrad, batch 32, 3 epochs, "
+            f"{CRITERION_SAMPLE} interactions): {len(times)} fits mean {mean * 1e3:.1f} ms, min "
+            f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}; {h.examples_per_epoch * h.num_epochs / mean:.1f} "
+            f"examples/s at the mean ({steps} steps a fit)", flush=True,
+        )
+        profiled_steps(f"phase {phase} profile, {family} criterion fit", model, crit_data, PROFILE_STEPS[family])
+        del model
+
+        # The tuned WARP configuration (epochs cut to WARP_EPOCHS); attention
+        # also with dropout 0.2, which draws from its dropout generator.
+        mark(f"phase {phase} {family} tuned WARP fit")
+        variants = [("", 0.0)] + ([(", dropout 0.2", 0.2)] if family == "attention" else [])
+        for suffix, rate in variants:
+            model = tuned_warp_model(family, dev, dropout=rate)
+            untrained = evaluation.mrr_score(model, held_out)
+            dropout_state = model._dropout_generator.get_state()
+            zero_counters()
+            t0 = time.perf_counter()
+            loss = model.fit(warp_data)
+            t_fit = time.perf_counter() - t0
+            read_counters(f"{family} tuned WARP fit{suffix}", fit_kernels + ("cand_score_smem",), absent=lstm_kernels)
+            h = model.history
+            drew = not torch.equal(dropout_state, model._dropout_generator.get_state())
+            if not (np.isfinite(loss) and h.epoch_losses[-1] < h.epoch_losses[0]) or drew != (rate > 0):
+                raise SmokeFailure(f"phase {phase} {family}{suffix}: epoch losses {h.epoch_losses.tolist()}, "
+                                   f"dropout stream moved: {drew}")
+            ids_a, vals_a = model.recommend_batch(hist_t, k=K, return_scores=True)
+            ids_b, vals_b = model.recommend_batch(hist_t, k=K, return_scores=True)
+            if ids_a != ids_b or not np.array_equal(vals_a, vals_b):
+                raise SmokeFailure(f"phase {phase} {family}{suffix}: serving is not deterministic")
+            check_lists(f"phase {phase} {family}{suffix} recommend_batch", ids_a, hist_t, BENCH_ITEMS)
+            metrics = {
+                "MRR": evaluation.mrr_score(model, held_out),
+                f"hit rate@{K}": evaluation.hit_rate_score(model, held_out, k=K),
+                f"NDCG@{K}": evaluation.ndcg_score(model, held_out, k=K),
+            }
+            print(
+                f"phase {phase} {family} tuned WARP fit{suffix} ({model.hyper._optimizer.value}, "
+                f"{h.num_epochs} epochs, batch {model.hyper._batch_size}, T={model.hyper._max_sequence_length}): "
+                f"{h.examples_per_epoch * h.num_epochs / t_fit:.1f} examples/s ({t_fit:.3f} s); epoch losses "
+                f"{h.epoch_losses[0]:.1f} -> {h.epoch_losses[-1]:.1f}; held-out "
+                + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
+                + f"; untrained MRR {untrained:.6f}", flush=True,
+            )
+            if not all(np.isfinite(v) for v in metrics.values()) or not metrics["MRR"] > untrained:
+                raise SmokeFailure(f"phase {phase} {family}{suffix}: metrics {metrics}, untrained MRR {untrained}")
+            if not suffix:
+                profiled_steps(f"phase {phase} profile, {family} tuned WARP fit", model, warp_data,
+                               PROFILE_STEPS[family])
+            del model
+        torch.cuda.empty_cache()
+
+        # Serving and evaluation at serve-10M's shape.
+        mark(f"phase {phase} {family} serving and evaluation at {N_ITEMS} items")
+        t0 = time.perf_counter()
+        model = family_serving_model(family, N_ITEMS, dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        histories = serving_histories(N_ITEMS)
+        zero_counters()
+        model.recommend_batch(histories, k=K)  # warm-up
+        before = topk_streamed.rechecked_users
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ids, vals = model.recommend_batch(histories, k=K, return_scores=True)
+            times.append(time.perf_counter() - t0)
+        read_counters(f"{family} serving path", ("score_submax_groupmax",), absent=lstm_kernels)
+        t_med = statistics.median(times)
+        print(
+            f"phase {phase} {family} serve-10M (dim {DIM}, T={SEQ_LEN}, {N_ITEMS} items, built in {t_build:.1f} s) "
+            f"recommend_batch k={K}: {USERS / t_med:.1f} users/s (median of 3: "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per batch of {USERS}); the certificate sent "
+            f"{(topk_streamed.rechecked_users - before) / 3:g} of {USERS} users a batch to the FP32 K4", flush=True,
+        )
+        profiled(f"phase {phase} profile, one {family} batch at {N_ITEMS} items",
+                 lambda: model.recommend_batch(histories, k=K), top=6)
+        check_lists(f"phase {phase} {family}", ids, histories, N_ITEMS)
+        check_against_reference(f"phase {phase} {family}", model, histories[:REF_USERS], ids[:REF_USERS],
+                                vals[:REF_USERS], model._tower_fn(), torch)
+        mark(f"phase {phase} {family} eval-10M-{EVAL_USERS[0]}")
+        test = eval_test(EVAL_USERS[0])
+        evaluation.mrr_score(model, test)  # warm-up
+        zero_counters()
+        times, mrrs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            mrrs.append(evaluation.mrr_score(model, test))
+            times.append(time.perf_counter() - t0)
+        read_counters(f"{family} evaluation path", ("score_count_ge",), absent=lstm_kernels)
+        t_med = statistics.median(times)
+        print(
+            f"phase {phase} {family} eval-10M-{EVAL_USERS[0]}: {t_med * 1e6 / EVAL_USERS[0]:.1f} us per user "
+            f"(median of 3: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms), MRR {mrrs[0]:.6f}", flush=True,
+        )
+        if tk.score_count_ge.launches != 3 or not all(np.isfinite(m) and 0 < m <= 1 for m in mrrs):
+            raise SmokeFailure(f"phase {phase} {family}: {tk.score_count_ge.launches} K5 launches, MRR {mrrs}")
+        profiled(f"phase {phase} profile, one {family} eval at {N_ITEMS} items, U={EVAL_USERS[0]}",
+                 lambda: evaluation.mrr_score(model, test), top=6)
+        mark(f"phase {phase} {family} ranks against the per-user loop")
+        ptr = test.user_pointers
+        sub = sbr_data.CompressedInteractions(
+            EVAL_REF_USERS, N_ITEMS, ptr[: EVAL_REF_USERS + 1], test.item_ids[: ptr[EVAL_REF_USERS]],
+            test.timestamps[: ptr[EVAL_REF_USERS]],
+        )
+        check_ranks(f"phase {phase} {family}", model, sub, {"batched (K5)": evaluation._ranks_batched(model, sub)},
+                    evaluation._ranks_generic(model, sub), torch)
+        del model, test, sub, ids, vals
+        torch.cuda.empty_cache()
+        print(f"phase {phase} {family}: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
+
     kernels = []
     sources = {
         "lstm_fwd": ("sbr_rs_tpu_torch/csrc/lstm_fwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:49"),
@@ -1800,7 +2186,7 @@ def main() -> None:
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], **r,
+            "launches": launches[name], **r, "launches_by_path": launches_by_path[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -1854,9 +2240,10 @@ def check_ranks(phase, model, test, ranks, generic, torch):
         )
 
 
-def check_against_reference(phase, model, histories, ids, vals, lstm_apply, torch):
-    """The same users through a plain reference: the plain LSTM loop on the
-    same parameters, one torch.matmul per catalog chunk, seen items masked,
+def check_against_reference(phase, model, histories, ids, vals, tower, torch):
+    """The same users through a plain reference: the plain tower (``tower(
+    params, x)``, the LSTM's plain loop for the LSTM) on the same
+    parameters, one torch.matmul per catalog chunk, seen items masked,
     a running torch.topk of K + 1 over the chunks. Scores agree within TOL_REL
     relative; ids agree except where the reference's own scores tie within
     that tolerance."""
@@ -1872,7 +2259,8 @@ def check_against_reference(phase, model, histories, ids, vals, lstm_apply, torc
         inputs[i, : len(h)] = h
         last[i] = len(h) - 1
     emb = table[torch.from_numpy(inputs).to(dev)][:, :, :-1].float()
-    hidden = lstm_apply(params["tower"], emb, coupled=False)
+    with torch.no_grad():
+        hidden = tower(params["tower"], emb)
     reps = hidden[torch.arange(u, device=dev), torch.from_numpy(last).to(dev)]
     # A running top-(K+1) over the catalog, chunk by chunk: a dense [U, N]
     # score matrix would not fit beside a 50M-item table.

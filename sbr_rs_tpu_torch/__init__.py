@@ -1,15 +1,20 @@
 """sbr-rs-tpu on PyTorch and CUDA: the port of :mod:`sbr_rs_tpu` to NVIDIA
 Hopper (H100), beside the JAX package it is held against.
 
-So far it trains, serves and evaluates the LSTM family: ``fit`` (dense
-table updates for small catalogs, sparse touched-row updates for large
-ones, f32 or bf16 tables), user representations, ``predict``, the exact
-batched top-k of ``recommend_batch``, and MRR, hit rate and NDCG over the
-full catalog (:mod:`.evaluation`), with the LSTM recurrence (forward and
-backward), the catalog score + group-max, the catalog score + rank count,
-the row gather, the row read-modify-write and WARP's candidate score as
-hand-written CUDA kernels (``csrc/``). This package imports torch and
-numpy, never jax.
+It trains, serves and evaluates the four model families of the JAX package
+(:mod:`.models.lstm`, :mod:`.models.ewma`, :mod:`.models.gru` and
+:mod:`.models.attention`): ``fit`` (dense table updates for small catalogs,
+sparse touched-row updates for large ones, f32 or bf16 tables), user
+representations, ``predict``, the exact batched top-k of
+``recommend_batch``, and MRR, hit rate and NDCG over the full catalog
+(:mod:`.evaluation`). The LSTM recurrence (forward and backward), the
+catalog score + group-max, the catalog score + rank count, the row gather,
+the row read-modify-write and WARP's candidate score are hand-written CUDA
+kernels (``csrc/``), which every family's training, serving and evaluation
+run; the EWMA, GRU and attention towers are plain PyTorch, as they have no
+kernel in the JAX package. Models build on the card (``.build()``) unless
+the caller asks for the CPU (``.build("cpu")``). This package imports torch
+and numpy, never jax.
 
 Example::
 

@@ -1,5 +1,7 @@
-"""Models module: shared enums, the user-representation type, the LSTM
-family (:mod:`.lstm`) and the training engine (:mod:`.engine`).
+"""Models module: shared enums, the user-representation type, the
+``OnlineRankingModel`` protocol, the four families (:mod:`.lstm`,
+:mod:`.ewma`, :mod:`.gru`, :mod:`.attention`) and the training engine
+(:mod:`.engine`).
 
 Copies of the jax-free pieces of :mod:`sbr_rs_tpu.models` (importing that
 package would load jax). The enum values are the JAX package's, so the
@@ -10,8 +12,24 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Protocol, Sequence, runtime_checkable
 
 import numpy as np
+
+
+@runtime_checkable
+class OnlineRankingModel(Protocol):
+    """Structural protocol of the reference's core trait
+    (``src/lib.rs:101-116``): anything with these two methods can be scored
+    by :func:`sbr_rs_tpu_torch.evaluation.mrr_score`."""
+
+    def user_representation(self, item_ids: Sequence[int]) -> "ImplicitUser":
+        """Compute a user representation from an interaction history."""
+        ...
+
+    def predict(self, user: "ImplicitUser", item_ids: Sequence[int]) -> np.ndarray:
+        """Given a user representation, rank ``item_ids`` by score."""
+        ...
 
 
 @dataclasses.dataclass
@@ -45,6 +63,17 @@ class Parallelism(enum.Enum):
     SYNCHRONOUS = "synchronous"
 
 
-from . import engine, lstm  # noqa: E402  (re-exported submodules)
+from . import attention, engine, ewma, gru, lstm  # noqa: E402  (re-exported submodules)
 
-__all__ = ["ImplicitUser", "Loss", "Optimizer", "Parallelism", "engine", "lstm"]
+__all__ = [
+    "ImplicitUser",
+    "OnlineRankingModel",
+    "Loss",
+    "Optimizer",
+    "Parallelism",
+    "attention",
+    "engine",
+    "ewma",
+    "gru",
+    "lstm",
+]

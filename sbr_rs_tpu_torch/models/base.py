@@ -11,7 +11,13 @@ sentinel row, and each epoch walks a fresh permutation in minibatches of
 :func:`.engine.make_train_step`. The randomness (epoch permutations,
 negative candidates) comes from one ``torch.Generator`` on the model's
 device, seeded from the model's seed after the parameter draws and carried
-across ``fit`` calls; ``clone()`` copies its state.
+across ``fit`` calls. A tower with train-time dropout draws its masks from a
+second generator of the model's own, so the permutations and candidates do
+not depend on it; ``clone()`` copies both generators' states.
+
+The tower's parameters are a tree (nested dicts and lists of tensors, walked
+by :mod:`..utils.tree`): flat for the recurrent towers, per-layer lists for
+attention.
 
 Serving (``recommend_batch``):
 
@@ -62,6 +68,7 @@ from ..ops.sampling import WARP_CANDIDATES
 from ..utils.convert import params_from_numpy
 from ..utils.metrics import FitHistory, logger
 from ..utils.precision import fp32_matmul
+from ..utils.tree import flatten, map_leaves
 from . import ImplicitUser, Loss, Optimizer, Parallelism
 from .engine import (
     EngineConfig,
@@ -172,6 +179,35 @@ class Hyperparameters:
         self._packed = bool(enabled)
         return self
 
+    # -- random search (reference ``src/models/lstm.rs:141-172``) ----------
+
+    @classmethod
+    def random(cls, num_items: int, rng: "np.random.Generator | int | None" = None) -> "Hyperparameters":
+        """Random hyperparameters for search: the JAX package's draws, in
+        its order (the families with knobs of their own draw them after)."""
+        rng = rng if isinstance(rng, np.random.Generator) else np.random.default_rng(rng)
+        return cls._random_common(num_items, rng)
+
+    @classmethod
+    def _random_common(cls, num_items: int, rng: np.random.Generator) -> "Hyperparameters":
+        """The common draws of the JAX package's ``_random_common``.
+        ``parallelism`` is not drawn (it changes nothing); ``num_threads`` is
+        one ``integers`` call over the devices present. numpy draws nothing
+        for a range of one value, so the later fields follow a JAX draw
+        made over as many devices."""
+        hp = cls(num_items, 2 ** int(rng.integers(4, 8)))
+        hp._item_embedding_dim = 2 ** int(rng.integers(4, 8))
+        hp._learning_rate = float(10.0 ** rng.uniform(-3.0, 0.5))
+        hp._l2_penalty = float(10.0 ** rng.uniform(-7.0, -3.0))
+        hp._loss = Loss.BPR if rng.random() < 0.5 else Loss.HINGE
+        hp._optimizer = Optimizer.ADAM if rng.random() < 0.5 else Optimizer.ADAGRAD
+        hp._num_threads = int(rng.integers(1, max(1, device_count()) + 1))
+        hp._num_epochs = 2 ** int(rng.integers(3, 7))
+        hp._batch_size = int(2 ** rng.integers(3, 8))
+        hp._packed = bool(rng.random() < 0.5)
+        hp._seed = int(rng.integers(0, 2**31))
+        return hp
+
     def to_dict(self) -> dict:
         return {
             "num_items": self._num_items,
@@ -214,6 +250,11 @@ class Hyperparameters:
         hp._lr_schedule = d.get("lr_schedule", "constant")
         hp._embedding_init_scale = d.get("embedding_init_scale", 1.0)
         return hp
+
+
+def device_count() -> int:
+    """The devices a model could run on: the CUDA cards, or 1 (the CPU)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
 
 
 # -- host-side request preparation (vectorised numpy) -------------------------
@@ -585,6 +626,10 @@ class ImplicitSequenceModel:
         self._params = params
         # Training randomness continues from the parameter draws.
         self._train_generator = gen
+        # The tower's train-time dropout masks: a stream of their own, from
+        # the seed (as the JAX step folds the tower's key out of the step key).
+        dropout_seed = int(np.random.SeedSequence([hyper._seed, 1]).generate_state(1)[0])
+        self._dropout_generator = torch.Generator(device=device).manual_seed(dropout_seed)
         self._window_cache = None
         self.history: Optional[FitHistory] = None
 
@@ -595,7 +640,9 @@ class ImplicitSequenceModel:
 
     def _tower_fn(self):
         """``(tower_params, x [B, T, D], starts=None) -> hidden [B, T, D]``,
-        differentiable; ``starts [B, T]`` marks packed-window starts."""
+        differentiable; ``starts [B, T]`` marks packed-window starts. A
+        tower with train-time randomness also takes ``generator=`` (None:
+        deterministic, as serving and evaluation call it)."""
         raise NotImplementedError
 
     # -- training -------------------------------------------------------------
@@ -678,7 +725,8 @@ class ImplicitSequenceModel:
         n_pad = num_batches * batch_size
         epochs = hp._num_epochs
         train_step = make_train_step(
-            self._engine_config(), self._tower_fn(), total_steps=num_batches * epochs
+            self._engine_config(), self._tower_fn(), total_steps=num_batches * epochs,
+            generator=self._dropout_generator,
         )
         k_cand = WARP_CANDIDATES if hp._loss == Loss.WARP else 1
         params = self._params
@@ -732,22 +780,20 @@ class ImplicitSequenceModel:
 
     def load_numpy_params(self, tree: dict) -> None:
         """Load parameters given as numpy arrays in the JAX package's tree
-        (``{"item_table": [N, D+1], "tower": {...}}``) onto this model's
-        device. Shapes must match the model's; the table keeps the model's
-        storage dtype."""
+        (``{"item_table": [N, D+1], "tower": {...}}``, the tower nested as
+        the family's) onto this model's device. Paths and shapes must match
+        the model's; the table keeps the model's storage dtype."""
         new = params_from_numpy(tree, self.device)
-        old_tower = self._params["tower"]
         if tuple(new["item_table"].shape) != tuple(self._params["item_table"].shape):
             raise ValueError(
                 f"item_table {tuple(new['item_table'].shape)} does not match "
                 f"{tuple(self._params['item_table'].shape)}"
             )
-        if set(new["tower"]) != set(old_tower) or any(
-            new["tower"][name].shape != old_tower[name].shape for name in old_tower
-        ):
+        shapes = [(path, tuple(v.shape)) for path, v in flatten(new["tower"])]
+        if shapes != [(path, tuple(v.shape)) for path, v in flatten(self._params["tower"])]:
             raise ValueError("tower parameters do not match this model's")
         new["item_table"] = new["item_table"].to(self._params["item_table"].dtype)
-        new["tower"] = {name: v.to(torch.float32) for name, v in new["tower"].items()}
+        new["tower"] = map_leaves(lambda v: v.to(torch.float32), new["tower"])
         self._params = new
 
     # -- serving --------------------------------------------------------------
@@ -848,13 +894,15 @@ class ImplicitSequenceModel:
 
     def clone(self) -> "ImplicitSequenceModel":
         """Independent copy on the same device: hyperparameters, parameters
-        (deep-copied) and the training generator's state, so the copy's
-        next ``fit`` draws what this model's next ``fit`` would."""
+        (deep-copied) and the states of the training and dropout
+        generators, so the copy's next ``fit`` draws what this model's next
+        ``fit`` would."""
         hyper = type(self.hyper).from_dict(self.hyper.to_dict())
         m = hyper.build(self.device)
         m._params = {
             "item_table": self._params["item_table"].clone(),
-            "tower": {name: v.clone() for name, v in self._params["tower"].items()},
+            "tower": map_leaves(torch.clone, self._params["tower"]),
         }
         m._train_generator.set_state(self._train_generator.get_state())
+        m._dropout_generator.set_state(self._dropout_generator.get_state())
         return m

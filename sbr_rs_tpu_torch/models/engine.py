@@ -37,6 +37,7 @@ its loss as a device tensor so the host never waits on it.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from typing import Callable, Dict, Optional
 
@@ -46,6 +47,7 @@ from ..ops import optimizers as opt_ops
 from ..ops.losses import pairwise_loss
 from ..ops.row_kernels import cand_score, gather_rows, scatter_add_rows_
 from ..ops.sampling import WARP_CANDIDATES, warp_select_onehot
+from ..utils.tree import flatten, unflatten
 from . import Loss, Optimizer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,11 +111,12 @@ def table_biases(params: Dict) -> torch.Tensor:
 
 
 def init_opt_state(kind: Optimizer, params: Dict) -> Dict:
-    """Fresh optimizer state: a host step count and zero state per tensor."""
+    """Fresh optimizer state: a host step count and zero state per tensor,
+    the tower's keyed by each leaf's path (:func:`..utils.tree.flatten`)."""
     return {
         "step": 0,
         "item_table": opt_ops.init_state(kind, params["item_table"]),
-        "tower": {name: opt_ops.init_state(kind, p) for name, p in params["tower"].items()},
+        "tower": {path: opt_ops.init_state(kind, p) for path, p in flatten(params["tower"])},
     }
 
 
@@ -137,11 +140,18 @@ def make_train_step(
     config: EngineConfig,
     tower_apply: Callable[..., torch.Tensor],
     total_steps: int = 0,
+    generator: Optional[torch.Generator] = None,
 ) -> Callable:
     """Build the training step.
 
     ``tower_apply(tower_params, x [B, T, D], starts=None) -> hidden [B, T, D]``
-    must be differentiable with respect to ``x`` and the tower parameters.
+    must be differentiable with respect to ``x`` and the tower parameters,
+    a tree of tensors (nested dicts and lists). A tower whose signature
+    takes ``generator`` (attention's dropout) is handed ``generator``, the
+    model's own dropout generator, and draws from nothing else; the other
+    towers are called without it. So the candidates and permutations the
+    caller draws never depend on the tower, as in the JAX package, whose
+    step folds the tower's key out of the step key.
 
     Returns ``train_step(params, opt_state, batch, candidates, lr=None,
     l2=None) -> (params, opt_state, loss_sum)``. ``batch`` holds an int
@@ -161,6 +171,9 @@ def make_train_step(
     k_cand = WARP_CANDIDATES if is_warp else 1
     num_items = config.num_items
     kind = config.optimizer
+    tower_kwargs = {}
+    if "generator" in inspect.signature(tower_apply).parameters:
+        tower_kwargs["generator"] = generator
 
     def train_step(
         params: Dict,
@@ -190,9 +203,11 @@ def make_train_step(
             return gather_rows(table, idx.reshape(-1)).reshape(idx.shape + (c_param,))
 
         rows_s = gather(stream).requires_grad_()
-        tower = {name: p.detach().requires_grad_() for name, p in params["tower"].items()}
+        tower_pairs = flatten(params["tower"])
+        paths = [path for path, _ in tower_pairs]
+        tower_leaves = [p.detach().requires_grad_() for _, p in tower_pairs]
         in_emb, pos_rows = rows_s[:, :t, :-1], rows_s[:, 1:, :]
-        hidden = tower_apply(tower, in_emb, starts=starts)
+        hidden = tower_apply(unflatten(paths, tower_leaves), in_emb, starts=starts, **tower_kwargs)
         haug = torch.cat([hidden, hidden.new_ones((b, t, 1))], dim=-1)
         pos_score = (haug * pos_rows).sum(-1)
         if is_warp:
@@ -208,11 +223,10 @@ def make_train_step(
         neg_score = (haug * neg_rows).sum(-1)
         loss_sum = (pairwise_loss(config.loss, pos_score, neg_score) * mask).sum()
 
-        leaves = [rows_s, neg_rows, *tower.values()]
+        leaves = [rows_s, neg_rows, *tower_leaves]
         grads = torch.autograd.grad(loss_sum, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, grads)]
         d_rows = torch.cat([grads[0].reshape(-1, c_param), grads[1].reshape(-1, c_param)])
-        d_tower = dict(zip(tower, grads[2:]))
 
         # Stream-slot occurrence flags: slot p is an input occurrence iff
         # position p is supervised, a target occurrence iff position p-1 is.
@@ -256,8 +270,8 @@ def make_train_step(
                 kind, lr_t, l2, table, opt_state["item_table"], grad,
                 touched[:num_items], step, bias_touched=bias_touched[:num_items],
             )
-        for name, p in params["tower"].items():
-            opt_ops.dense_update(kind, lr_t, l2, p, opt_state["tower"][name], d_tower[name], step)
+        for (path, p), d_p in zip(tower_pairs, grads[2:]):
+            opt_ops.dense_update(kind, lr_t, l2, p, opt_state["tower"][path], d_p, step)
         opt_state["step"] = step + 1
         return params, opt_state, loss_sum.detach()
 

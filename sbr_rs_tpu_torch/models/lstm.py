@@ -12,6 +12,7 @@ import enum
 import functools
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..ops.lstm_kernels import lstm_apply_kernel
@@ -38,6 +39,16 @@ class Hyperparameters(base.Hyperparameters):
     def lstm_variant(self, variant: LSTMVariant) -> "Hyperparameters":
         self._lstm_variant = variant
         return self
+
+    @classmethod
+    def random(cls, num_items: int, rng: "np.random.Generator | int | None" = None) -> "Hyperparameters":
+        """Random hyperparameters for search (reference
+        ``src/models/lstm.rs:141-172``): the common draws, then the variant,
+        as the JAX package draws them."""
+        rng = rng if isinstance(rng, np.random.Generator) else np.random.default_rng(rng)
+        hp = cls._random_common(num_items, rng)
+        hp._lstm_variant = LSTMVariant.NORMAL if rng.random() < 0.5 else LSTMVariant.COUPLED
+        return hp
 
     def to_dict(self) -> dict:
         d = super().to_dict()

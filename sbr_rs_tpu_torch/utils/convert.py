@@ -1,9 +1,13 @@
 """Parameters between the JAX package and this one, as numpy arrays.
 
 The tree is the one ``sbr_rs_tpu/utils/checkpoint.py`` saves under
-``"params"``: ``{"item_table": [N, D+1], "tower": {"w_x", "w_h", "b"}}``.
-Reading ``state.msgpack`` itself needs flax (and so jax) and is not done
-here: hand over the arrays.
+``"params"``: ``{"item_table": [N, D+1], "tower": ...}``, the tower a tree
+of nested dicts and lists as the family builds it (``{"w_x", "w_h", "b"}``
+for the LSTM and GRU, ``{"alpha"}`` for EWMA, ``{"pos", "layers": [...],
+"ln_f"}`` for attention). ``state.msgpack`` itself is not read here: flax
+writes each array as a msgpack extension (type 1) holding ``(shape, dtype
+name, bytes)``, so ``msgpack`` and ``ml_dtypes`` would read it, without
+flax or jax; until checkpoints are ported, hand over the arrays.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from .tree import map_leaves
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
@@ -32,20 +38,13 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_numpy(tree: Dict, device: "torch.device | str") -> Dict:
-    """The JAX package's parameter tree (numpy arrays) as this package's
-    parameters (tensors on ``device``, dtypes kept)."""
+    """The JAX package's parameter tree (numpy arrays; dicts and lists) as
+    this package's parameters (tensors on ``device``, dtypes kept)."""
     device = torch.device(device)
-    return {
-        "item_table": _to_tensor(tree["item_table"], device),
-        "tower": {name: _to_tensor(v, device) for name, v in tree["tower"].items()},
-    }
+    return map_leaves(lambda a: _to_tensor(a, device), tree)
 
 
 def params_to_numpy(model_or_params) -> Dict:
-    """A model's parameters (or a parameter dict) as the JAX package's tree
-    of numpy arrays."""
-    params = getattr(model_or_params, "_params", model_or_params)
-    return {
-        "item_table": _to_numpy(params["item_table"]),
-        "tower": {name: _to_numpy(v) for name, v in params["tower"].items()},
-    }
+    """A model's parameters (or a parameter tree) as the JAX package's tree
+    of numpy arrays, lists kept as lists."""
+    return map_leaves(_to_numpy, getattr(model_or_params, "_params", model_or_params))

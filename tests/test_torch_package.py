@@ -28,7 +28,10 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_out():
     code = (
         "import sys, sbr_rs_tpu_torch, sbr_rs_tpu_torch.data, sbr_rs_tpu_torch.datasets, "
-        "sbr_rs_tpu_torch.models.engine, sbr_rs_tpu_torch.evaluation, sbr_rs_tpu_torch.ops.row_kernels; assert 'jax' not in sys.modules, sorted(sys.modules)"
+        "sbr_rs_tpu_torch.models.engine, sbr_rs_tpu_torch.evaluation, sbr_rs_tpu_torch.ops.row_kernels, "
+        "sbr_rs_tpu_torch.models.attention, sbr_rs_tpu_torch.models.ewma, sbr_rs_tpu_torch.models.gru, "
+        "sbr_rs_tpu_torch.models.towers, sbr_rs_tpu_torch.utils.tree; "
+        "assert 'jax' not in sys.modules and 'sbr_rs_tpu' not in sys.modules, sorted(sys.modules)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
