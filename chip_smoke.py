@@ -129,7 +129,28 @@ attention families, one phase per printed line:
    the family's tower, itself plain PyTorch); and eval-10M-512 (µs per
    user, a profiled call, 64 users' ranks against the per-user loop). Each
    path's counters must show P1 and P2 (fits), P3 (WARP fits), K4
-   (serving) and K5 (evaluation) at work, and no launch of K1 or K2.
+   (serving) and K5 (evaluation) at work, and no launch of K1 or K2;
+15a. checkpoints: phase 9's fit-bench model, trained, saved on the card and
+   loaded: ``recommend_batch`` ids and scores and the three metrics equal
+   bit for bit, one more ``fit`` from each (the loaded one counted as a
+   path: K1, K2, P1, P3) with parameters bit-equal (the generators
+   restored), and the same directory loaded on the CPU (representations
+   within TOL_LSTM);
+15b. ckpt-10M: serve-10M's model (5.12 GB f32 table, flax's 5 chunks), the
+   free disk first (the catalog cut to what it holds, at least 2 chunks),
+   saved and loaded with their seconds, GB/s, busy seconds of the
+   device->host copy, the hash and the write (or read), and the host's
+   peak RSS above its level before each call; then ``recommend_batch`` for
+   the 4096 serving users and ``mrr_score`` for eval-10M-512's users from
+   the loaded model (both counted as paths), bit-equal and equal;
+15c. a 5,000,000 x 128 bf16 table (1.28 GB, 2 chunks) round-tripped bit
+   for bit; the EWMA, GRU and attention criterion models round-tripped
+   with their representations bit-equal; whether ``msgpack`` is importable
+   (for information: nothing needs it);
+16. one serve-10M batch under ``utils.metrics.trace``, in a process of its
+   own (``trace_serve_batch``): the trace file must name K4's and K1's CUDA
+   symbols;
+17. ``examples/torch_quickstart.py --epochs 1`` in a subprocess on the card.
 
 It then prints the kernels' JSON line (each kernel's launches on the main
 paths, in all and by path, largest error, card and plain times, its bound on this card, by the
@@ -147,9 +168,11 @@ import functools
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -245,6 +268,13 @@ PROFILE_STEPS = {"ewma": 10, "gru": 3, "attention": 10}
 # WARP selections under two towers may flip only where a candidate's margin
 # 1 - pos + cand lies this close to 0.
 TOL_MARGIN = 1e-4
+# Phases 15a-17: checkpoints. The bf16 table of phase 15c (5M x 128 bf16,
+# 1.28 GB: past flax's 2**30-byte chunk, so written in 2 chunks), the
+# smallest of the 10M table's 5 chunks phase 15b may cut to when the disk is
+# short, and the CUDA symbols of K4 and K1 phase 16's trace must name.
+N_ITEMS_CKPT_BF16 = 5_000_000
+CKPT_MIN_CHUNKS = 2
+TRACE_SYMBOLS = ("score_submax_kernel", "lstm_fwd_smem_kernel")
 # Published peaks of one H100 SXM (dense): FP32 outside the tensor cores,
 # TF32 on them, and HBM3. A kernel's bound is the larger of its FLOPs and its
 # bytes (each input read once, each output written once) over these; a
@@ -285,11 +315,12 @@ def serving_histories(num_items, users=USERS, seed=7):
     return [rng.integers(0, num_items, rng.integers(2, 32)).tolist() for _ in range(users)]
 
 
-def eval_test(users):
-    """The held-out users of eval-10M-512 and eval-10M-4096 (phase 6b)."""
+def eval_test(users, num_items=N_ITEMS):
+    """The held-out users of eval-10M-512 and eval-10M-4096 (phase 6b), over
+    ``num_items`` items."""
     from sbr_rs_tpu_torch import datasets
 
-    return datasets.synthetic_interactions(users, N_ITEMS, 20, rng=EVAL_SEEDS[users]).to_compressed()
+    return datasets.synthetic_interactions(users, num_items, 20, rng=EVAL_SEEDS[users]).to_compressed()
 
 
 def fit_ml1m_model(dev, dtype="float32"):
@@ -2167,6 +2198,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         print(f"phase {phase} {family}: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
 
+    checkpoint_phases(dev, mark, zero_counters, read_counters, warp_kernels, eval_kernels)
+
     kernels = []
     sources = {
         "lstm_fwd": ("sbr_rs_tpu_torch/csrc/lstm_fwd.cu", "sbr_rs_tpu/ops/pallas_lstm.py:49"),
@@ -2193,6 +2226,249 @@ def main() -> None:
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
     }))
+
+
+def host_rss_kb():
+    """This process's resident set (``VmRSS``), in kB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise SmokeFailure("/proc/self/status has no VmRSS")
+
+
+def peak_host_memory(fn):
+    """``(fn(), seconds, GB of host RSS above the level before at the call's
+    peak)``, the peak sampled every 2 ms by a thread: neither ``ru_maxrss``
+    (the peak of the earlier phases) nor a ``VmHWM`` reset (``/proc/self/
+    clear_refs`` is not writable in every container) gives one call's peak."""
+    import threading
+
+    import torch
+
+    stop = threading.Event()
+    before = host_rss_kb()
+    peak = [before]
+
+    def sample():
+        while not stop.wait(0.002):
+            peak[0] = max(peak[0], host_rss_kb())
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        stop.set()
+        sampler.join()
+    return out, seconds, (max(peak[0], host_rss_kb()) - before) * 1024 / 1e9
+
+
+def checkpoint_phases(dev, mark, zero_counters, read_counters, warp_kernels, eval_kernels):
+    """Phases 15a-17: a trained fit-bench model saved and loaded (on the
+    card and on the CPU), serve-10M's model through a 5.12 GB checkpoint, a
+    bf16 table past flax's chunk size and the families' trees, the profiler
+    trace of a serve-10M batch (in a process of its own), and the
+    quickstart example."""
+    import importlib.util
+
+    import torch
+    from sbr_rs_tpu_torch import evaluation
+    from sbr_rs_tpu_torch.models import lstm
+    from sbr_rs_tpu_torch.models.base import ImplicitSequenceModel
+    from sbr_rs_tpu_torch.utils import checkpoint, msgpack_codec
+    from sbr_rs_tpu_torch.utils.tree import flatten
+
+    tmp = tempfile.mkdtemp(prefix="sbr_ckpt_")
+    try:
+        # -- phase 15a: fit-bench saved on the card, loaded on the card and the CPU --
+        mark("phase 15a")
+        bench_train, bench_test = fit_bench_split()
+        data, held_out = bench_train.to_compressed(), bench_test.to_compressed()
+        model = fit_bench_model(dev)
+        model.fit(data)
+        ptr, items = data.user_pointers, data.item_ids
+        hist = [items[ptr[u] : ptr[u + 1]].tolist() for u in range(len(ptr) - 1) if ptr[u + 1] > ptr[u]][:64]
+        path = os.path.join(tmp, "fit-bench")
+        t0 = time.perf_counter()
+        model.save(path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        copy = ImplicitSequenceModel.load(path)
+        t_load = time.perf_counter() - t0
+        if copy.device.type != dev.type:
+            raise SmokeFailure(f"phase 15a: the loaded model is on {copy.device}, not the card")
+        served = [m.recommend_batch(hist, k=K, return_scores=True) for m in (model, copy)]
+        if served[0][0] != served[1][0] or not np.array_equal(served[0][1], served[1][1]):
+            raise SmokeFailure("phase 15a: the loaded model serves other ids or scores")
+        metrics = [
+            (evaluation.mrr_score(m, held_out), evaluation.hit_rate_score(m, held_out, k=K),
+             evaluation.ndcg_score(m, held_out, k=K))
+            for m in (model, copy)
+        ]
+        if metrics[0] != metrics[1]:
+            raise SmokeFailure(f"phase 15a: metrics {metrics[0]} before the save, {metrics[1]} after")
+        cpu = ImplicitSequenceModel.load(path, "cpu")
+        reps_card, reps_cpu = (np.stack([u.user_embedding for u in m.user_representations(hist)]) for m in (copy, cpu))
+        rep_err = float(np.abs(reps_card - reps_cpu).max())
+        if not rep_err <= TOL_LSTM or cpu.device.type != "cpu":
+            raise SmokeFailure(f"phase 15a: CPU representations {rep_err:.3e} from the card's")
+        zero_counters()
+        loss_copy = copy.fit(data)
+        read_counters("fit-bench fit continued from its checkpoint", warp_kernels)
+        loss_model = model.fit(data)
+        leaves = [("item_table", model._params["item_table"], copy._params["item_table"])] + [
+            (name, v, w) for (name, v), (_, w) in zip(flatten(model._params["tower"]), flatten(copy._params["tower"]))
+        ]
+        differ = [name for name, v, w in leaves if not torch.equal(v, w)]
+        if differ or loss_copy != loss_model:
+            raise SmokeFailure(f"phase 15a: the continued fits differ (losses {loss_model}, {loss_copy}; {differ})")
+        print(
+            f"phase 15a fit-bench checkpoint: saved in {t_save * 1e3:.1f} ms, loaded on the card in "
+            f"{t_load * 1e3:.1f} ms; {len(hist)} users served bit-equal; MRR {metrics[0][0]:.6f}, hit rate@{K} "
+            f"{metrics[0][1]:.6f}, NDCG@{K} {metrics[0][2]:.6f} equal; one more fit from each: loss "
+            f"{loss_model:.6f}, parameters bit-equal (generators restored); loaded on the CPU: representations "
+            f"within {rep_err:.3e} of the card's (tol {TOL_LSTM:.0e})", flush=True,
+        )
+        del model, copy, cpu
+
+        # -- phase 15b: ckpt-10M, serve-10M's model through a 5.12 GB checkpoint ------
+        mark("phase 15b")
+        free = shutil.disk_usage(tmp).free
+        row_bytes = (DIM + 1) * 4
+        num_items = N_ITEMS
+        if free < N_ITEMS * row_bytes * 1.02:
+            num_items = min(int(free * 0.9) // row_bytes, N_ITEMS)
+        print(f"phase 15b free disk at {tmp}: {free / 1e9:.2f} GB; catalog {num_items} items "
+              f"({num_items * row_bytes / 1e9:.2f} GB)" + (" (cut: the disk is short)" if num_items < N_ITEMS else ""),
+              flush=True)
+        chunks = -(-num_items * row_bytes // msgpack_codec.MAX_CHUNK_SIZE)
+        if chunks < CKPT_MIN_CHUNKS:
+            raise SmokeFailure(f"phase 15b: the disk holds {free / 1e9:.2f} GB, less than {CKPT_MIN_CHUNKS} chunks")
+        model = serving_model(num_items, dev)
+        histories = serving_histories(num_items)
+        test = eval_test(EVAL_USERS[0], num_items)
+        ids0, vals0 = model.recommend_batch(histories, k=K, return_scores=True)
+        mrr0 = evaluation.mrr_score(model, test)
+        path = os.path.join(tmp, "serve-10M")
+        saved = {}
+        _, t_save, rss_save = peak_host_memory(lambda: checkpoint.save_model(model, path, saved))
+        size = os.path.getsize(os.path.join(path, checkpoint.STATE))
+        if b"__msgpack_chunked_array__" not in open(os.path.join(path, checkpoint.STATE), "rb").read(4096):
+            raise SmokeFailure("phase 15b: the table was not written in flax's chunks")
+        loaded = {}
+        copy, t_load, rss_load = peak_host_memory(lambda: checkpoint.load_model(path, dev, loaded))
+        print(
+            f"phase 15b ckpt-10M ({num_items} x {DIM + 1} f32 table, {chunks} chunks): state.msgpack {size} bytes; "
+            f"save {t_save:.3f} s ({size / t_save / 1e9:.3f} GB/s; busy: device->host {saved['d2h_s']:.3f} s, "
+            f"hash {saved['hash_s']:.3f} s, write {saved['write_s']:.3f} s, overlapped), peak host RSS "
+            f"+{rss_save:.3f} GB; load {t_load:.3f} s ({size / t_load / 1e9:.3f} GB/s; busy: read "
+            f"{loaded['read_s']:.3f} s, hash {loaded['hash_s']:.3f} s; the model build included), peak host RSS "
+            f"+{rss_load:.3f} GB", flush=True,
+        )
+        if not torch.equal(copy._params["item_table"], model._params["item_table"]):
+            raise SmokeFailure("phase 15b: the loaded table differs")
+        del model
+        torch.cuda.empty_cache()
+        zero_counters()
+        ids1, vals1 = copy.recommend_batch(histories, k=K, return_scores=True)
+        read_counters("ckpt-10M serving from the loaded model", ("lstm_fwd", "score_submax_groupmax"))
+        if ids1 != ids0 or not np.array_equal(vals1, vals0):
+            raise SmokeFailure("phase 15b: the loaded model serves other ids or scores")
+        zero_counters()
+        mrr1 = evaluation.mrr_score(copy, test)
+        read_counters("ckpt-10M evaluation of the loaded model", eval_kernels)
+        if mrr1 != mrr0:
+            raise SmokeFailure(f"phase 15b: MRR {mrr0} before the save, {mrr1} after")
+        print(f"phase 15b {len(histories)} users served bit-equal from the loaded model; MRR of "
+              f"eval-10M-{EVAL_USERS[0]}'s users {mrr1:.9e}, equal", flush=True)
+        shutil.rmtree(path)
+        del copy
+        torch.cuda.empty_cache()
+
+        # -- phase 15c: a bf16 table past the chunk size; the families' trees ---------
+        mark("phase 15c")
+        bf16 = (lstm.Hyperparameters(N_ITEMS_CKPT_BF16, SEQ_LEN).embedding_dim(DIM).table_dtype("bfloat16")
+                .from_seed(1).build(dev))
+        path = os.path.join(tmp, "bf16")
+        _, t_save, _ = peak_host_memory(lambda: bf16.save(path))
+        back, t_load, _ = peak_host_memory(lambda: ImplicitSequenceModel.load(path))
+        table, table_back = bf16._params["item_table"], back._params["item_table"]
+        if table_back.dtype != torch.bfloat16 or not torch.equal(table.view(torch.int16), table_back.view(torch.int16)):
+            raise SmokeFailure("phase 15c: the bf16 table did not round-trip bit for bit")
+        print(f"phase 15c bf16 table {N_ITEMS_CKPT_BF16} x {DIM + 1} ({table.numel() * 2 / 1e9:.2f} GB, "
+              f"{-(-table.numel() * 2 // msgpack_codec.MAX_CHUNK_SIZE)} chunks): saved in {t_save:.3f} s, loaded in {t_load:.3f} s, "
+              f"bit for bit", flush=True)
+        del bf16, back, table, table_back
+        shutil.rmtree(path)
+        for family in FAMILIES:
+            model = criterion_model(family, dev)
+            path = os.path.join(tmp, family)
+            model.save(path)
+            back = ImplicitSequenceModel.load(path)
+            reps = [np.stack([u.user_embedding for u in m.user_representations(hist)]) for m in (model, back)]
+            if type(back) is not type(model) or not np.array_equal(*reps):
+                raise SmokeFailure(f"phase 15c: {family}'s representations differ after the round trip")
+            print(f"phase 15c {family} criterion model ({len(flatten(model._params['tower']))} tower leaves): "
+                  f"representations of {len(hist)} users bit-equal after the round trip", flush=True)
+        print(f"phase 15c msgpack importable on this machine: {importlib.util.find_spec('msgpack') is not None} "
+              "(for information: the port reads and writes without it)", flush=True)
+
+        # -- phase 16: the profiler trace of one serve-10M batch -----------------------
+        # In its own process: after this script's earlier profiler sessions,
+        # torch's profiler drops the first kernels of a region (PERF.md §7).
+        mark("phase 16")
+        log_dir = os.path.join(tmp, "trace")
+        root = os.path.dirname(os.path.abspath(__file__))
+        code = f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; chip_smoke.trace_serve_batch({log_dir!r})"
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SmokeFailure(f"phase 16: the traced process failed: {proc.stderr[-2000:]}")
+        files = [os.path.join(log_dir, f) for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+        if len(files) != 1:
+            raise SmokeFailure(f"phase 16: {len(files)} trace files in {log_dir}")
+        events = json.load(open(files[0]))["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        missing = [name for name in TRACE_SYMBOLS if not any(name in e["name"] for e in kernels)]
+        print(f"phase 16 trace of one serve-10M batch (a process of its own): {os.path.getsize(files[0])} bytes, "
+              f"{len(events)} events, {len(kernels)} kernels"
+              + (f"; missing {missing}" if missing else f", naming {', '.join(TRACE_SYMBOLS)}"), flush=True)
+        if missing:
+            raise SmokeFailure(f"phase 16: the trace does not name {missing}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- phase 17: the quickstart example on the card ---------------------------------
+    mark("phase 17")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "examples", "torch_quickstart.py"), "--epochs", "1"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    lines = proc.stdout.strip().splitlines()
+    print(f"phase 17 examples/torch_quickstart.py --epochs 1: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for line in lines:
+        print(f"  {line}", flush=True)
+    if proc.returncode != 0 or not any("the copy serves the same top-10" in line for line in lines):
+        raise SmokeFailure(f"phase 17: the quickstart failed: {proc.stderr[-2000:]}")
+
+
+def trace_serve_batch(log_dir):
+    """Phase 16's process: serve-10M's model, one batch to warm up, then one
+    batch under ``utils.metrics.trace(log_dir)``."""
+    import torch
+    from sbr_rs_tpu_torch.utils.metrics import trace
+
+    model = serving_model(N_ITEMS, torch.device("cuda", 0))
+    histories = serving_histories(N_ITEMS)
+    model.recommend_batch(histories, k=K)
+    with trace(log_dir):
+        model.recommend_batch(histories, k=K)
 
 
 def check_lists(phase, ids, histories, n):

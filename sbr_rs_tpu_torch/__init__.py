@@ -13,8 +13,11 @@ the row read-modify-write and WARP's candidate score are hand-written CUDA
 kernels (``csrc/``), which every family's training, serving and evaluation
 run; the EWMA, GRU and attention towers are plain PyTorch, as they have no
 kernel in the JAX package. Models build on the card (``.build()``) unless
-the caller asks for the CPU (``.build("cpu")``). This package imports torch
-and numpy, never jax.
+the caller asks for the CPU (``.build("cpu")``); ``model.save(dir)`` and
+``ImplicitSequenceModel.load(dir)`` write and read the JAX package's
+checkpoints (:mod:`.utils.checkpoint`), and :func:`.utils.metrics.trace`
+profiles a region. This package imports torch and numpy, never jax, flax
+or msgpack.
 
 Example::
 
@@ -52,6 +55,13 @@ from .errors import (
     PredictionError,
 )
 
+# Type aliases mirroring the reference (``src/lib.rs:77-81``).
+UserId = int
+ItemId = int
+Timestamp = int
+
+__version__ = "0.1.0"
+
 __all__ = [
     "data",
     "datasets",
@@ -59,6 +69,10 @@ __all__ = [
     "evaluation",
     "models",
     "ops",
+    "UserId",
+    "ItemId",
+    "Timestamp",
+    "__version__",
     "DatasetError",
     "FittingError",
     "InvalidPredictionValue",

@@ -65,6 +65,7 @@ from ..ops.topk_kernels import (
     split_reps,
 )
 from ..ops.sampling import WARP_CANDIDATES
+from ..utils import checkpoint
 from ..utils.convert import params_from_numpy
 from ..utils.metrics import FitHistory, logger
 from ..utils.precision import fp32_matmul
@@ -630,6 +631,8 @@ class ImplicitSequenceModel:
         # the seed (as the JAX step folds the tower's key out of the step key).
         dropout_seed = int(np.random.SeedSequence([hyper._seed, 1]).generate_state(1)[0])
         self._dropout_generator = torch.Generator(device=device).manual_seed(dropout_seed)
+        # The JAX PRNG key a checkpoint records (see ..utils.checkpoint).
+        self._jax_key = checkpoint.fresh_key(hyper._seed)
         self._window_cache = None
         self.history: Optional[FitHistory] = None
 
@@ -781,9 +784,19 @@ class ImplicitSequenceModel:
     def load_numpy_params(self, tree: dict) -> None:
         """Load parameters given as numpy arrays in the JAX package's tree
         (``{"item_table": [N, D+1], "tower": {...}}``, the tower nested as
-        the family's) onto this model's device. Paths and shapes must match
-        the model's; the table keeps the model's storage dtype."""
-        new = params_from_numpy(tree, self.device)
+        the family's) onto this model's device, as :meth:`load_params`."""
+        self.load_params(params_from_numpy(tree, self.device))
+
+    def load_params(self, tree: dict) -> None:
+        """Load a parameter tree of tensors (on any device) in the JAX
+        package's layout. Paths and shapes must match the model's; the
+        table keeps the model's storage dtype, the tower is f32, and
+        tensors already on this device in those dtypes are taken without a
+        copy."""
+        new = {
+            "item_table": tree["item_table"].to(self.device),
+            "tower": map_leaves(lambda v: v.to(self.device), tree["tower"]),
+        }
         if tuple(new["item_table"].shape) != tuple(self._params["item_table"].shape):
             raise ValueError(
                 f"item_table {tuple(new['item_table'].shape)} does not match "
@@ -894,9 +907,9 @@ class ImplicitSequenceModel:
 
     def clone(self) -> "ImplicitSequenceModel":
         """Independent copy on the same device: hyperparameters, parameters
-        (deep-copied) and the states of the training and dropout
-        generators, so the copy's next ``fit`` draws what this model's next
-        ``fit`` would."""
+        (deep-copied), the states of the training and dropout generators,
+        so the copy's next ``fit`` draws what this model's next ``fit``
+        would, and the JAX key a checkpoint records."""
         hyper = type(self.hyper).from_dict(self.hyper.to_dict())
         m = hyper.build(self.device)
         m._params = {
@@ -905,4 +918,19 @@ class ImplicitSequenceModel:
         }
         m._train_generator.set_state(self._train_generator.get_state())
         m._dropout_generator.set_state(self._dropout_generator.get_state())
+        m._jax_key = self._jax_key.copy()
         return m
+
+    # -- checkpointing ---------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Save to the directory ``path`` in the JAX package's checkpoint
+        format (:mod:`..utils.checkpoint`)."""
+        checkpoint.save_model(self, path)
+
+    @classmethod
+    def load(cls, path: str, device: "torch.device | str" = "cuda") -> "ImplicitSequenceModel":
+        """The model saved at ``path`` by either package, on ``device`` (the
+        card unless the caller asks for ``"cpu"``; without CUDA a ``cuda``
+        load raises)."""
+        return checkpoint.load_model(path, device)

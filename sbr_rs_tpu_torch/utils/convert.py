@@ -4,10 +4,11 @@ The tree is the one ``sbr_rs_tpu/utils/checkpoint.py`` saves under
 ``"params"``: ``{"item_table": [N, D+1], "tower": ...}``, the tower a tree
 of nested dicts and lists as the family builds it (``{"w_x", "w_h", "b"}``
 for the LSTM and GRU, ``{"alpha"}`` for EWMA, ``{"pos", "layers": [...],
-"ln_f"}`` for attention). ``state.msgpack`` itself is not read here: flax
-writes each array as a msgpack extension (type 1) holding ``(shape, dtype
-name, bytes)``, so ``msgpack`` and ``ml_dtypes`` would read it, without
-flax or jax; until checkpoints are ported, hand over the arrays.
+"ln_f"}`` for attention). Checkpoints need none of this: each package
+reads the other's directory directly (:mod:`.checkpoint`, on the codec of
+:mod:`.msgpack_codec`, which needs neither ``msgpack`` nor ``ml_dtypes``).
+Here the arrays are handed over in memory, as numpy's ``bfloat16`` of
+``ml_dtypes`` where a table is bf16.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # numpy's bfloat16; needed only for bf16 tables
+        import ml_dtypes  # numpy's bfloat16, for the numpy hand-off of bf16 tables
 
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy().copy()

@@ -1,24 +1,27 @@
-"""Training observability: fit history and a leveled logger.
+"""Training observability: fit history, a profiler trace and a leveled
+logger.
 
-Counterpart of :mod:`sbr_rs_tpu.utils.metrics` (a copy of its jax-free
-parts):
+Counterpart of :mod:`sbr_rs_tpu.utils.metrics`:
 
 * :class:`FitHistory` — per-epoch losses, example counts, and wall-clock
   throughput for the last ``fit`` call (``model.history``).
+* :func:`trace` — a ``torch.profiler`` trace of a region, written for
+  TensorBoard or Perfetto (the JAX package's wraps ``jax.profiler``).
 * :class:`Logger` — minimal leveled stderr logger, configurable via
   ``SBR_LOG`` (``quiet`` | ``info`` | ``debug``).
-
-The profiler ``trace`` context is not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
 import time
+from typing import Iterator
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -60,6 +63,26 @@ class FitHistory:
             f"fit: {self.num_epochs} epochs x {self.examples_per_epoch} examples "
             f"in {self.wall_s:.2f}s ({self.examples_per_sec:,.0f} ex/s), {losses}"
         )
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the enclosed region into
+    ``log_dir`` (a ``*.pt.trace.json`` file; view it with TensorBoard's
+    profile plugin or Perfetto): the host's operators always, and the CUDA
+    kernels and copies when a card is present (the region ends when the
+    card has run what it launched). In a process that has run many
+    profiler sessions before, torch's profiler can leave the first kernels
+    of a region out of the trace (seen with torch 2.11 on an H100); a fresh
+    process traces them all."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+        if cuda:
+            torch.cuda.synchronize()
 
 
 _LEVELS = {"quiet": 0, "info": 1, "debug": 2}

@@ -30,15 +30,20 @@ def test_import_leaves_jax_out():
         "import sys, sbr_rs_tpu_torch, sbr_rs_tpu_torch.data, sbr_rs_tpu_torch.datasets, "
         "sbr_rs_tpu_torch.models.engine, sbr_rs_tpu_torch.evaluation, sbr_rs_tpu_torch.ops.row_kernels, "
         "sbr_rs_tpu_torch.models.attention, sbr_rs_tpu_torch.models.ewma, sbr_rs_tpu_torch.models.gru, "
-        "sbr_rs_tpu_torch.models.towers, sbr_rs_tpu_torch.utils.tree; "
-        "assert 'jax' not in sys.modules and 'sbr_rs_tpu' not in sys.modules, sorted(sys.modules)"
+        "sbr_rs_tpu_torch.models.towers, sbr_rs_tpu_torch.utils.tree, sbr_rs_tpu_torch.utils.checkpoint, "
+        "sbr_rs_tpu_torch.utils.msgpack_codec, sbr_rs_tpu_torch.utils.metrics; "
+        "bad = [m for m in ('jax', 'flax', 'msgpack', 'ml_dtypes', 'sbr_rs_tpu') if m in sys.modules]; "
+        "assert not bad, bad; "
+        "assert {'UserId', 'ItemId', 'Timestamp', '__version__'} <= set(sbr_rs_tpu_torch.__all__); "
+        "assert sbr_rs_tpu_torch.UserId is sbr_rs_tpu_torch.ItemId is sbr_rs_tpu_torch.Timestamp is int; "
+        "assert sbr_rs_tpu_torch.__version__ == '0.1.0'"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
 
 
 def test_sources_import_no_jax():
-    pattern = re.compile(r"^\s*(import|from) (jax|sbr_rs_tpu)\b", re.MULTILINE)
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|msgpack|sbr_rs_tpu)\b", re.MULTILINE)
     files = sorted((ROOT / "sbr_rs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for f in files:
