@@ -150,7 +150,30 @@ attention families, one phase per printed line:
 16. one serve-10M batch under ``utils.metrics.trace``, in a process of its
    own (``trace_serve_batch``): the trace file must name K4's and K1's CUDA
    symbols;
-17. ``examples/torch_quickstart.py --epochs 1`` in a subprocess on the card.
+17. ``examples/torch_quickstart.py --epochs 1`` in a subprocess on the card;
+18a. the mesh at world size 1: ``parallel.initialize(backend="nccl")`` with a
+   one-rank TCP rendezvous, and a (1, 1) mesh fit-bench fit bit-equal to
+   the mesh-less fit (losses and every parameter);
+18b. four ranks on the one card over gloo (``backend="gloo"``, the caller's
+   choice: NCCL refuses two ranks on one device; gloo copies the CUDA
+   tensors of its collectives through the host), a (data=2, model=2) mesh
+   (``scripts/torch_multiprocess_fit.py``): fit-10M-sparse-mesh (phase 10's
+   configuration, each rank a 5,000,000-row slab of the table and its
+   Adagrad state) and the same with Hinge, each equal bit for bit (losses,
+   sha256 of each slab and of the tower) to the world-size-1 fit on the
+   same draws that runs each batch as the data axis's two shares and sums
+   them without a collective; the replicas bit-equal; WARP's epoch loss
+   within 1e-4 of the plain world-size-1 fit's, and both fits' distance
+   from it printed; the ranks' sharded save loaded at world size 1 equal to
+   the fitted model; in examples/s with the host seconds, calls and bytes
+   of rank 0's collectives; eval-10M-512-mesh (K5 on each slab) against the
+   world-size-1 ranks of the loaded model except at near-ties; then two
+   ranks: a (1, 2) fit-10M-sparse fit (the row-sharded step alone) whose
+   table and tower equal the world-size-1 fit's bit for bit (sha256 of each
+   slab), and ckpt-10M-sharded loaded at world size 2, each slab's sha256
+   that of the world-size-1 load; the launches of K1, K2, dW_h, P1, P2, P4
+   and K5 on the mesh path (rank 0's). With two cards or more, the fit
+   again over NCCL, one rank a card.
 
 It then prints the kernels' JSON line (each kernel's launches on the main
 paths, in all and by path, largest error, card and plain times, its bound on this card, by the
@@ -165,6 +188,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import itertools
 import json
 import os
@@ -275,6 +299,13 @@ TOL_MARGIN = 1e-4
 N_ITEMS_CKPT_BF16 = 5_000_000
 CKPT_MIN_CHUNKS = 2
 TRACE_SYMBOLS = ("score_submax_kernel", "lstm_fwd_smem_kernel")
+# Phase 18: the mesh. 18b's (data, model) shape, the time limit of its rank
+# groups (and of each collective), and the tolerances (those of
+# tests/test_torch_fit.py) its tables' distance from the plain world-size-1
+# fit's is printed against.
+MESH_SHAPE = (2, 2)
+MESH_TIMEOUT_S, MESH_COLLECTIVE_TIMEOUT_S = 240, 180
+MESH_RTOL, MESH_ATOL = 2e-4, 1e-3
 # Published peaks of one H100 SXM (dense): FP32 outside the tensor cores,
 # TF32 on them, and HBM3. A kernel's bound is the larger of its FLOPs and its
 # bytes (each input read once, each output written once) over these; a
@@ -350,8 +381,9 @@ def fit_ml1m_data():
     return datasets.synthetic_interactions(6040, 3706, 165, rng=0).to_compressed()
 
 
-def fit_bench_model(dev):
-    """fit-bench's model (phase 9): Normal LSTM-32, T=32, WARP, Adagrad."""
+def fit_bench_model(dev, mesh=None):
+    """fit-bench's model (phase 9): Normal LSTM-32, T=32, WARP, Adagrad
+    (over ``mesh`` when given: phase 18a)."""
     from sbr_rs_tpu_torch.models import Loss, Optimizer, lstm
 
     return (
@@ -366,7 +398,30 @@ def fit_bench_model(dev):
         .batch_size(256)
         .packed(True)
         .from_seed(42)
+        .mesh(mesh)
         .build(dev)
+    )
+
+
+def items_hyper(num_items, dtype):
+    """``benches/large_scale.py bench_items`` at dim 127, as ``items10m``
+    and ``items20m_bf16`` build it (the LSTM variant left at its default):
+    the hyperparameters of fit-10M-sparse (phase 10), fit-20M-bf16 (11) and
+    fit-10M-sparse-mesh (18b)."""
+    from sbr_rs_tpu_torch.models import Loss, Optimizer, lstm
+
+    return (
+        lstm.Hyperparameters(num_items, FIT_T)
+        .embedding_dim(DIM)
+        .learning_rate(0.1)
+        .loss(Loss.WARP)
+        .optimizer(Optimizer.ADAGRAD)
+        .num_epochs(1)
+        .batch_size(256)
+        .packed(True)
+        .sparse_updates(True)
+        .table_dtype(dtype)
+        .from_seed(0)
     )
 
 
@@ -477,7 +532,7 @@ def device_ms(fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then returns an empty trace
+    for attempt in range(3):  # the profiler now and then returns an empty trace
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -487,6 +542,8 @@ def device_ms(fn, reps=20):
             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
         )
         if busy_us > 0:
+            if attempt:
+                print(f"  device_ms: {attempt} empty profiler trace(s) before this one", flush=True)
             return busy_us / 1e3 / reps
     raise SmokeFailure("torch.profiler saw no device time")
 
@@ -1877,22 +1934,7 @@ def main() -> None:
     # -- phases 10 and 11: sparse training at 10M (f32) and 20M (bf16) items ---------------
     mark("phases 10 and 11")
     def items_model(num_items, dtype):
-        """``benches/large_scale.py bench_items`` at dim 127, as ``items10m``
-        and ``items20m_bf16`` build it (the LSTM variant left at its default)."""
-        return (
-            lstm.Hyperparameters(num_items, FIT_T)
-            .embedding_dim(DIM)
-            .learning_rate(0.1)
-            .loss(Loss.WARP)
-            .optimizer(Optimizer.ADAGRAD)
-            .num_epochs(1)
-            .batch_size(256)
-            .packed(True)
-            .sparse_updates(True)
-            .table_dtype(dtype)
-            .from_seed(0)
-            .build(dev)
-        )
+        return items_hyper(num_items, dtype).build(dev)
 
     for phase, num_items, dtype in (("10", N_ITEMS, "float32"), ("11", N_ITEMS_BF16, "bfloat16")):
         label = f"fit-{num_items // 1_000_000}M-{'sparse' if dtype == 'float32' else 'bf16'}"
@@ -2199,6 +2241,7 @@ def main() -> None:
         print(f"phase {phase} {family}: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
 
     checkpoint_phases(dev, mark, zero_counters, read_counters, warp_kernels, eval_kernels)
+    mesh_phases(dev, mark, launches, launches_by_path)
 
     kernels = []
     sources = {
@@ -2418,8 +2461,9 @@ def checkpoint_phases(dev, mark, zero_counters, read_counters, warp_kernels, eva
               "(for information: the port reads and writes without it)", flush=True)
 
         # -- phase 16: the profiler trace of one serve-10M batch -----------------------
-        # In its own process: after this script's earlier profiler sessions,
-        # torch's profiler drops the first kernels of a region (PERF.md §7).
+        # In its own process: late in a process that has kept the card busy,
+        # torch's profiler drops a region's first kernel records
+        # (utils.metrics.trace, PERF.md §7; scripts/torch_trace_probe.py).
         mark("phase 16")
         log_dir = os.path.join(tmp, "trace")
         root = os.path.dirname(os.path.abspath(__file__))
@@ -2458,6 +2502,227 @@ def checkpoint_phases(dev, mark, zero_counters, read_counters, warp_kernels, eva
         raise SmokeFailure(f"phase 17: the quickstart failed: {proc.stderr[-2000:]}")
 
 
+def mesh_phases(dev, mark, launches, launches_by_path):
+    """Phases 18a and 18b: the mesh on the card. 18a: world size 1 through
+    ``parallel.initialize`` (NCCL, a one-rank TCP rendezvous), a (1, 1) mesh
+    fit-bench fit bit-equal to the mesh-less one. 18b: four ranks on the one
+    card over gloo (NCCL refuses two ranks on one device), a (2, 2) mesh:
+    fit-10M-sparse-mesh, and the same with Hinge, each bit-equal to the
+    world-size-1 fit that runs each batch as two shares on the same draws
+    (the plain world-size-1 fit holds WARP's loss to 1e-4 and prints its
+    distance), the ranks' sharded save loaded at world size 1 bit-equal to
+    the fit, eval-10M-512-mesh (K5 on each slab) against the world-size-1
+    ranks of the loaded model; two ranks: a
+    (1, 2) fit bit-equal to the world-size-1 fit, and ckpt-10M-sharded
+    loaded, each slab bit-equal to the world-size-1 load. With two cards or
+    more, the fit again over NCCL, one rank a card."""
+    import torch
+    from sbr_rs_tpu_torch import datasets, evaluation, parallel
+    from sbr_rs_tpu_torch.models import Loss, engine
+    from sbr_rs_tpu_torch.models.base import ImplicitSequenceModel
+    from sbr_rs_tpu_torch.utils.tree import flatten
+    from scripts.torch_multiprocess_fit import free_port, launch
+
+    # -- phase 18a: world size 1 over NCCL ---------------------------------------------
+    mark("phase 18a")
+    t0 = time.perf_counter()
+    data = fit_bench_split()[0].to_compressed()
+    parallel.initialize(backend="nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        plain, meshed = fit_bench_model(dev), fit_bench_model(dev, parallel.make_mesh(1, 1))
+        plain.fit(data)
+        meshed.fit(data)
+    finally:
+        parallel.shutdown()
+    differ = [path for (path, a), (_, b) in zip(flatten(plain._params), flatten(meshed._params)) if not torch.equal(a, b)]
+    if differ or not np.array_equal(plain.history.epoch_losses, meshed.history.epoch_losses):
+        raise SmokeFailure(f"phase 18a: the (1, 1) mesh fit differs from the mesh-less fit ({differ})")
+    print(f"phase 18a fit-bench on a (1, 1) mesh (NCCL, world size 1): epoch losses and every parameter "
+          f"bit-equal to the mesh-less fit ({plain.history.epoch_losses[0]:.3f} -> "
+          f"{plain.history.epoch_losses[-1]:.3f}); {time.perf_counter() - t0:.1f} s", flush=True)
+    del plain, meshed
+
+    # -- phase 18b: (2, 2) over gloo, four ranks on the card ------------------------------
+    mark("phase 18b")
+    t_phase = time.perf_counter()
+    hyper = items_hyper(N_ITEMS, "float32")
+    hinge = items_hyper(N_ITEMS, "float32").loss(Loss.HINGE)
+    mat = datasets.synthetic_interactions(FIT_USERS, N_ITEMS, FIT_ITEMS_PER_USER, rng=0).to_compressed()
+    test = eval_test(EVAL_USERS[0], N_ITEMS)
+    tmp = tempfile.mkdtemp(prefix="sbr_mesh_")
+    try:
+        name = "fit-10M-sparse-mesh"
+        fit_case = {"family": "lstm", "mesh": list(MESH_SHAPE), "data": [FIT_USERS, N_ITEMS, FIT_ITEMS_PER_USER, 0],
+                    "fit": True, "sha256": True}
+        spec = {
+            "backend": "gloo", "device": "cuda", "timeout_s": MESH_COLLECTIVE_TIMEOUT_S, "inputs": None,
+            "out": os.path.join(tmp, "out4.npz"),
+            "cases": [{**fit_case, "name": name, "hyper": hyper.to_dict(),
+                       "eval": [EVAL_USERS[0], N_ITEMS, 20, EVAL_SEEDS[EVAL_USERS[0]]],
+                       "save": os.path.join(tmp, "ws4")},
+                      {**fit_case, "name": f"{name}-hinge", "hyper": hinge.to_dict()}],
+        }
+        t0 = time.perf_counter()
+        run = launch(MESH_SHAPE[0] * MESH_SHAPE[1], spec, os.path.join(tmp, "spec4.json"), MESH_TIMEOUT_S)
+        t_run = time.perf_counter() - t0
+        got = run["cases"][name]
+        col = got["collectives"]
+        print(
+            f"phase 18b {name} ({MESH_SHAPE[0]} x {MESH_SHAPE[1]} mesh, gloo, 4 ranks on one card, "
+            f"{N_ITEMS // MESH_SHAPE[1]}-row slabs): {got['examples_per_s']:.1f} examples/s ({got['fit_s']:.3f} s, "
+            f"{got['steps']} steps); collectives on rank 0 during the fit: {col['calls']} calls, "
+            f"{col['bytes'] / 1e6:.1f} MB, {col['seconds']:.3f} s of host ({col['seconds'] / got['steps'] * 1e3:.2f} "
+            f"ms and {col['bytes'] / got['steps'] / 1e6:.2f} MB a step); replicas bit-equal: "
+            f"{got['replicas_equal']}; the ranks' run (this fit, its evaluation and save, and the Hinge fit) "
+            f"{t_run:.1f} s, sharded save {got['save_s']:.3f} s", flush=True,
+        )
+        kernels = {"lstm_fwd": "K1", "lstm_bwd": "K2", "lstm_bwd_dwh": "dW_h", "gather_rows": "P1",
+                   "scatter_add_rows": "P2", "cand_score_rows": "P4", "score_count_ge": "K5"}
+        path = "mesh (fit-10M-sparse-mesh + eval-10M-512-mesh, rank 0 of 4)"
+        print(f"launches on the {path}: {got['launches']}", flush=True)
+        for k, count in got["launches"].items():
+            launches[k] += count
+            if count:
+                launches_by_path[k][path] = count
+        never = [f"{label} ({k})" for k, label in kernels.items() if not got["launches"][k]]
+        if never:
+            raise SmokeFailure(f"phase 18b: the mesh path never launched {never}")
+        # The build keeps a slab and draws the rest a chunk at a time.
+        row_bytes = (DIM + 1) * 4
+        most = (-(-N_ITEMS // MESH_SHAPE[1]) + engine.INIT_CHUNK_ROWS) * row_bytes
+        print(f"phase 18b build on rank 0: card memory peaked at {got['build_peak_bytes'] / 1e9:.3f} GB (its slab "
+              f"and one {engine.INIT_CHUNK_ROWS}-row chunk: {most / 1e9:.3f} GB; the whole table "
+              f"{N_ITEMS * row_bytes / 1e9:.3f} GB)", flush=True)
+        if got["build_peak_bytes"] > most * 1.01:
+            raise SmokeFailure(f"phase 18b: rank 0's build took {got['build_peak_bytes']} bytes, more than {most}")
+
+        # Each (2, 2) fit against two world-size-1 fits on the same draws:
+        # the one that runs each batch as the data axis's two shares and
+        # sums them (no collective; every sum over two data ranks is one
+        # a + b), held bit for bit, so the data axis's exchange of tower
+        # gradients, rows and losses at full size is held exactly; and the
+        # plain one, held in the loss (WARP, fit-10M-sparse's configuration)
+        # and its distance printed (PERF.md §6: Adagrad's first step turns
+        # the other rounding of near-zero tower gradients into +-lr).
+        for case, hp in ((name, hyper), (f"{name}-hinge", hinge)):
+            mine = run["cases"][case]
+            plain = hp.build(dev)
+            plain.fit(mat)
+            shared = hp.build(dev)
+            shared._data_shares = 2
+            shared.fit(mat)
+            table_sha = [slab_sha256(shared._params["item_table"], m, MESH_SHAPE[1]) for m in range(MESH_SHAPE[1])]
+            exact = (mine["table_sha256"] == table_sha and mine["tower_sha256"] == tower_sha256(shared)
+                     and mine["epoch_losses"] == shared.history.epoch_losses.tolist() and mine["replicas_equal"])
+            a, b = shared._params["item_table"], plain._params["item_table"]
+            beyond = int(((a - b).abs() > MESH_ATOL + MESH_RTOL * b.abs()).any(dim=1).sum())
+            tower_diff = max(float((v - w).abs().max()) for (_, v), (_, w) in
+                             zip(flatten(shared._params["tower"]), flatten(plain._params["tower"])))
+            loss_rel = abs(mine["epoch_losses"][0] / float(plain.history.epoch_losses[0]) - 1.0)
+            print(f"phase 18b {case}: epoch loss {mine['epoch_losses'][0]:.6f}; bit-equal to the two-share "
+                  f"world-size-1 fit (losses, both slabs and the tower, sha256): {exact}; against the plain "
+                  f"world-size-1 fit: loss {float(plain.history.epoch_losses[0]):.6f} ({loss_rel:.3e} apart), "
+                  f"table largest difference {float((a - b).abs().max()):.3e}, {beyond} of {N_ITEMS} rows past "
+                  f"rtol {MESH_RTOL} / atol {MESH_ATOL}, tower largest difference {tower_diff:.3e}", flush=True)
+            if not exact:
+                raise SmokeFailure(f"phase 18b: the {case} fit differs from the two-share world-size-1 fit")
+            if case == name:
+                if loss_rel > 1e-4:
+                    raise SmokeFailure(f"phase 18b: the {case} loss is {loss_rel:.3e} from the world-size-1 loss")
+                ref, ref_shared = plain, shared
+            del a, b, plain, shared
+        torch.cuda.empty_cache()
+
+        # ckpt-10M-sharded at world size 1: the whole table the ranks saved
+        # is the two-share fit's.
+        t0 = time.perf_counter()
+        copy = ImplicitSequenceModel.load(os.path.join(tmp, "ws4"), dev)
+        t_load = time.perf_counter() - t0
+        if not all(torch.equal(v, w) for (_, v), (_, w) in zip(flatten(copy._params), flatten(ref_shared._params))):
+            raise SmokeFailure("phase 18b: the sharded save, loaded at world size 1, is not the fitted model")
+        print(f"phase 18b ckpt-10M-sharded loaded at world size 1 in {t_load:.3f} s, bit-equal to the two-share "
+              f"fit", flush=True)
+        ref_sha = [slab_sha256(ref._params["item_table"], m, 2) for m in range(2)]
+        ref_tower = tower_sha256(ref)
+        del ref, ref_shared
+        torch.cuda.empty_cache()
+
+        # eval-10M-512-mesh: the ranks of K5 per slab against the world-size-1
+        # ranks of the same parameters.
+        ranks_ws1 = evaluation._ranks_batched(copy, test)
+        ranks_mesh = run["arrays"][f"{name}.ranks"]
+        print(f"phase 18b eval-10M-{EVAL_USERS[0]}-mesh: MRR {got['mrr']:.9f} in {got['eval_s'] * 1e3:.1f} ms "
+              f"(K5 on each slab, lo = 0 and {-(-N_ITEMS // MESH_SHAPE[1])}); world size 1: MRR "
+              f"{float(np.mean(1.0 / ranks_ws1)):.9f}", flush=True)
+        check_ranks("phase 18b", copy, test, {"mesh (K5 per slab)": ranks_mesh}, ranks_ws1, torch,
+                    against="world size 1 (K5 on the whole table)")
+
+        # Two ranks, (1, 2): the row-sharded fit alone, bit-equal to world
+        # size 1; then ckpt-10M-sharded loaded, each slab bit-equal to the
+        # world-size-1 load.
+        spec2 = {"backend": "gloo", "device": "cuda", "timeout_s": MESH_COLLECTIVE_TIMEOUT_S, "inputs": None,
+                 "out": os.path.join(tmp, "out2.npz"),
+                 "cases": [{"name": "fit-m2", "family": "lstm", "hyper": hyper.to_dict(), "mesh": [1, 2],
+                            "data": [FIT_USERS, N_ITEMS, FIT_ITEMS_PER_USER, 0], "fit": True, "sha256": True},
+                           {"name": "ws2", "load": os.path.join(tmp, "ws4"), "mesh": [1, 2], "sha256": True}]}
+        t0 = time.perf_counter()
+        run2 = launch(2, spec2, os.path.join(tmp, "spec2.json"), MESH_TIMEOUT_S)["cases"]
+        t_ws2 = time.perf_counter() - t0
+        fit2 = run2["fit-m2"]
+        if fit2["table_sha256"] != ref_sha or fit2["tower_sha256"] != ref_tower or not fit2["replicas_equal"]:
+            raise SmokeFailure("phase 18b: the (1, 2) fit is not bit-equal to the world-size-1 fit")
+        loaded_sha = [slab_sha256(copy._params["item_table"], m, 2) for m in range(2)]
+        if run2["ws2"]["table_sha256"] != loaded_sha:
+            raise SmokeFailure("phase 18b: a slab loaded at world size 2 differs from the world-size-1 load")
+        print(f"phase 18b two ranks ({t_ws2:.1f} s with their start): a (1, 2) fit-10M-sparse fit "
+              f"({fit2['examples_per_s']:.1f} examples/s, {fit2['collectives']['seconds']:.3f} s of host in "
+              f"{fit2['collectives']['calls']} collectives) bit-equal to the world-size-1 fit (both slabs and the "
+              f"tower, sha256); ckpt-10M-sharded loaded at world size 2, both slabs bit-equal to the world-size-1 "
+              f"load", flush=True)
+        del copy
+        torch.cuda.empty_cache()
+
+        if torch.cuda.device_count() >= 2:
+            world = 4 if torch.cuda.device_count() >= 4 else 2
+            spec3 = {"backend": "nccl", "device": "cuda", "timeout_s": MESH_COLLECTIVE_TIMEOUT_S, "inputs": None,
+                     "out": os.path.join(tmp, "out_nccl.npz"),
+                     "cases": [{"name": name, "family": "lstm", "hyper": hyper.to_dict(), "mesh": [world // 2, 2],
+                                "data": [FIT_USERS, N_ITEMS, FIT_ITEMS_PER_USER, 0], "fit": True}]}
+            nccl = launch(world, spec3, os.path.join(tmp, "spec_nccl.json"), MESH_TIMEOUT_S)["cases"][name]
+            print(f"phase 18b {name} over NCCL, one rank a card ({world // 2} x 2): {nccl['examples_per_s']:.1f} "
+                  f"examples/s, epoch loss {nccl['epoch_losses'][0]:.6f}", flush=True)
+            if not nccl["replicas_equal"] or not np.allclose(nccl["epoch_losses"], got["epoch_losses"], rtol=1e-4,
+                                                             atol=0):
+                raise SmokeFailure(f"phase 18b: the NCCL fit's losses {nccl['epoch_losses']}")
+        else:
+            print("phase 18b NCCL, one rank a card: skipped (one card)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 18b: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
+
+
+def tower_sha256(model):
+    """sha256 of the bytes of ``model``'s tower leaves, in path order."""
+    import torch
+    from sbr_rs_tpu_torch.utils.tree import flatten
+
+    return hashlib.sha256(b"".join(v.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                                   for _, v in flatten(model._params["tower"]))).hexdigest()
+
+
+def slab_sha256(table, m, model):
+    """sha256 of slab ``m`` of ``model`` of ``table``'s rows (as
+    ``parallel.sharding.slab_range`` cuts it), hashed 1M rows at a time."""
+    import torch
+
+    n = table.shape[0]
+    n_loc = -(-n // model)
+    h = hashlib.sha256()
+    for a in range(m * n_loc, min((m + 1) * n_loc, n), 1 << 20):
+        h.update(table[a : min(a + (1 << 20), (m + 1) * n_loc, n)].contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
 def trace_serve_batch(log_dir):
     """Phase 16's process: serve-10M's model, one batch to warm up, then one
     batch under ``utils.metrics.trace(log_dir)``."""
@@ -2483,9 +2748,9 @@ def check_lists(phase, ids, histories, n):
     print(f"  {phase}: {len(ids)} lists of {K} distinct unseen ids in [0, {n})", flush=True)
 
 
-def check_ranks(phase, model, test, ranks, generic, torch):
-    """Each of ``ranks`` (name -> ranks of the qualifying users) against the
-    per-user loop's ``generic``: equal, except that a user's ranks may
+def check_ranks(phase, model, test, ranks, generic, torch, against="the per-user loop"):
+    """Each of ``ranks`` (name -> ranks of the qualifying users) against
+    ``generic`` (the per-user loop's, or ``against``): equal, except that a user's ranks may
     differ by as many items as score within TOL_SCORE of its held-out item
     (plain f32 scores of the whole catalog, seen items masked)."""
     from sbr_rs_tpu_torch import evaluation
@@ -2509,7 +2774,7 @@ def check_ranks(phase, model, test, ranks, generic, torch):
         if r.shape != generic.shape or (diff > near).any():
             raise SmokeFailure(f"{phase}: {name} ranks differ from the per-user loop beyond near-ties")
         print(
-            f"  {phase}: {name} ranks of {len(users)} users against the per-user loop: "
+            f"  {phase}: {name} ranks of {len(users)} users against {against}: "
             f"{int((diff > 0).sum())} differ (by at most {int(diff.max())}); "
             f"{int((near > 0).sum())} users have another item within {TOL_SCORE:.0e} of the target",
             flush=True,

@@ -19,12 +19,20 @@ counters ranks a batch against the catalog on the model's device:
 
 The fused counter runs whenever the catalog needs more than one chunk (and
 the kernel takes the row width), on any device: on ``cuda`` that launches
-the kernel, on ``cpu`` its plain version. Single-chunk catalogs always take
-the chunked counter.
+the kernel, on ``cpu`` its plain version. Single-chunk catalogs take the
+chunked counter, unless the table is row-sharded.
+
+On a table row-sharded over a mesh's ``model`` axis (the JAX package's
+``shard_count``), every catalog takes the fused counter: each rank runs K5
+on its own slab (``lo`` its first row, ``n`` the catalog, so a short last
+slab is masked by ``n``), the counts are summed over the model group, the
+probe score comes from the slab that owns the held-out item, and the
+targets and the seen correction read rows through the sharded gather. The
+ranks are those of the unsharded table, and every rank returns them.
 
 Unlike the JAX module, batches are not padded to a fixed shape (PyTorch
-runs eagerly, so there is no program to reuse), there is no mesh branch,
-and out-of-range ids are refused on the host before any gather. The plain
+runs eagerly, so there is no program to reuse), and out-of-range ids are
+refused on the host before any gather. The plain
 matmuls (targets, the chunked counter's slabs, the seen correction) run in
 full FP32 whatever the caller's ``allow_tf32`` (:mod:`.utils.precision`).
 """
@@ -38,6 +46,8 @@ from .data import CompressedInteractions
 from .errors import InvalidPredictionValue
 from .models.base import ImplicitSequenceModel, _seen_rows
 from .ops.topk_kernels import count_supported, score_count_ge
+from .parallel.mesh import MODEL_AXIS
+from .parallel.sharding import owner_sum, read_rows, slab_range, to_local
 from .utils.precision import fp32_matmul
 
 _NEG_MIN = float(np.finfo(np.float32).min)
@@ -88,10 +98,10 @@ def _ranks(model, test: CompressedInteractions) -> np.ndarray:
     return _ranks_generic(model, test)
 
 
-def _targets(table, reps, test_items, test_in_prefix) -> torch.Tensor:
+def _targets(table, reps, test_items, test_in_prefix, mesh=None, total_rows=None) -> torch.Tensor:
     """Each user's masked score of its held-out item: ``f32 min`` when the
     item was already seen (the reference masks before it reads the score)."""
-    rows_t = table.index_select(0, test_items).to(torch.float32)
+    rows_t = read_rows(table, test_items, mesh, total_rows)
     with fp32_matmul():
         raw = (reps * rows_t[:, :-1]).sum(dim=1) + rows_t[:, -1]
     return torch.where(test_in_prefix, torch.full_like(raw, _NEG_MIN), raw)
@@ -134,9 +144,11 @@ def _count_catalog_chunked(table, reps, prefix, test_items, test_in_prefix, num_
     return counts, self_hits, targets
 
 
-def _count_catalog_fused(table, reps, prefix, test_items, test_in_prefix, num_items):
+def _count_catalog_fused(table, reps, prefix, test_items, test_in_prefix, num_items, mesh=None, total_rows=None):
     """``(counts, self_hits, targets)`` as :func:`_count_catalog_chunked`
-    gives them, from one whole-catalog :func:`score_count_ge` call.
+    gives them, from one whole-catalog :func:`score_count_ge` call (under a
+    model axis, one call on this rank's slab of the ``total_rows``-row
+    table, summed over the model group).
 
     The kernel counts *unmasked* scores ``>= target`` and returns each
     user's own score of its held-out item (the probe). The seen correction
@@ -147,13 +159,19 @@ def _count_catalog_fused(table, reps, prefix, test_items, test_in_prefix, num_it
     bias-augmented f32 dot; a last-ulp difference between it and the
     kernel can flip one ``>=`` only at an exact tie."""
     u = reps.shape[0]
-    targets = _targets(table, reps, test_items, test_in_prefix)
+    targets = _targets(table, reps, test_items, test_in_prefix, mesh, total_rows)
     reps_aug = torch.cat([reps, reps.new_ones((u, 1))], dim=1).contiguous()
-    counts_all, probe = score_count_ge(table, reps_aug, targets, test_items, 0, 0, num_items)
+    if mesh is None or mesh.model == 1:
+        counts_all, probe = score_count_ge(table, reps_aug, targets, test_items, 0, 0, num_items)
+    else:
+        lo, hi = slab_range(mesh, total_rows)
+        local, in_slab = to_local(test_items, lo, hi)
+        counts_all, probe = score_count_ge(table, reps_aug, targets, local, lo, 0, num_items)
+        mesh.all_reduce(counts_all, MODEL_AXIS)
+        probe = owner_sum(probe, in_slab, mesh)
 
     p = prefix.shape[1]
-    seen_rows = table.index_select(0, prefix.clamp(0, num_items - 1).reshape(-1))
-    seen_rows = seen_rows.to(torch.float32).reshape(u, p, -1)
+    seen_rows = read_rows(table, prefix.clamp(0, num_items - 1).reshape(-1), mesh, total_rows).reshape(u, p, -1)
     with fp32_matmul():
         seen_sc = torch.bmm(seen_rows, reps_aug[:, :, None])[:, :, 0]
     valid = prefix < num_items
@@ -176,7 +194,7 @@ def _batch_inputs(model, test: CompressedInteractions, users: np.ndarray, num_it
     offsets = np.repeat(starts - (np.cumsum(lens) - lens), lens)
     flat = test.item_ids[offsets + np.arange(int(lens.sum()))].astype(np.int64)
     test_items = test.item_ids[ends].astype(np.int64)
-    n_rows = model._params["item_table"].shape[0]
+    n_rows = model.hyper._num_items
     if flat.size and (flat.min() < 0 or flat.max() >= n_rows):
         raise InvalidPredictionValue(f"History contains item ids outside [0, {n_rows}).")
 
@@ -199,9 +217,11 @@ def _ranks_batched(model: ImplicitSequenceModel, test: CompressedInteractions) -
     """Ranks of every user with at least 2 items, batch by batch on the
     model's device (module docstring)."""
     num_items = test.num_items
-    table = model._params["item_table"]
-    if num_items > table.shape[0]:
-        raise ValueError(f"the test set has {num_items} items, the model {table.shape[0]}")
+    table = model._params["item_table"]  # this rank's slab under a model axis
+    mesh, total_rows = model.hyper._mesh, model.hyper._num_items
+    sharded = mesh is not None and mesh.model > 1
+    if num_items > total_rows:
+        raise ValueError(f"the test set has {num_items} items, the model {total_rows}")
     users = np.flatnonzero(np.diff(test.user_pointers) >= 2)
     if not len(users):
         return np.zeros((0,), dtype=np.int64)
@@ -210,14 +230,17 @@ def _ranks_batched(model: ImplicitSequenceModel, test: CompressedInteractions) -
         raise InvalidPredictionValue(f"Held-out item ids outside [0, {num_items}).")
 
     item_chunk = min(_ITEM_CHUNK, num_items)
-    fused = -(-num_items // item_chunk) > 1 and count_supported(num_items, table.shape[1], 1)
+    supported = count_supported(num_items, table.shape[1], 1)
+    if sharded and not supported:
+        raise ValueError(f"the fused counter does not take rows of {table.shape[1]} columns")
+    fused = sharded or (-(-num_items // item_chunk) > 1 and supported)
     user_batch = _USER_BATCH_FUSED if fused else _USER_BATCH
 
     all_ranks = []
     for start in range(0, len(users), user_batch):
         inputs = _batch_inputs(model, test, users[start : start + user_batch], num_items)
         if fused:
-            counts, self_hits, targets = _count_catalog_fused(table, *inputs, num_items)
+            counts, self_hits, targets = _count_catalog_fused(table, *inputs, num_items, mesh, total_rows)
         else:
             counts, self_hits, targets = _count_catalog_chunked(table, *inputs, num_items, item_chunk)
         # A non-finite target (non-finite parameters) would fake a

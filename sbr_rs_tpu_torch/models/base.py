@@ -38,9 +38,18 @@ Serving (``recommend_batch``):
 The budgets keep the JAX package's values, so both packages take the same
 branch for the same shapes. The plain matmuls of serving run in full FP32
 whatever the caller's ``torch.backends.cuda.matmul.allow_tf32``
-(:func:`..utils.precision.fp32_matmul`); the flag is left as it was. ``approximate=True`` and the sharded paths are
-not ported yet. PyTorch runs eagerly, so there is
-no program cache.
+(:func:`..utils.precision.fp32_matmul`); the flag is left as it was.
+``approximate=True`` is not ported. PyTorch runs eagerly, so there is no
+program cache.
+
+Under a mesh (``Hyperparameters.mesh``, :mod:`..parallel`) every rank runs
+the model's methods together: ``fit`` splits each batch over the ``data``
+axis and keeps the item table row-sharded over the ``model`` axis
+(:mod:`.engine`); representations, ``predict``, the parameter views and
+the evaluation read the whole table through sharded gathers, and every
+rank returns the same values. ``recommend_batch`` runs as on one device
+under a ``data``-only mesh; on a row-sharded table it raises
+``NotImplementedError`` (the sharded top-k, ROADMAP item 5b).
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ from ..ops.topk_kernels import (
     split_reps,
 )
 from ..ops.sampling import WARP_CANDIDATES
+from ..parallel.mesh import DATA_AXIS, make_mesh, world
+from ..parallel.sharding import batch_slice, gather_slabs, read_rows, slab_range
 from ..utils import checkpoint
 from ..utils.convert import params_from_numpy
 from ..utils.metrics import FitHistory, logger
@@ -84,9 +95,11 @@ from .engine import (
 
 class Hyperparameters:
     """Fluent hyperparameters (reference ``src/models/lstm.rs:54-139``),
-    with the JAX package's fields and defaults. The mesh is not ported;
-    ``num_threads`` and ``parallelism`` change nothing on one device, as in
-    the JAX package without a mesh."""
+    with the JAX package's fields and defaults. ``mesh`` trains over a
+    ``(data, model)`` mesh of ranks (:mod:`..parallel`); ``num_threads > 1``
+    asks for a ``(data=n)`` mesh when a process group is initialised, and
+    changes nothing in a single process, as in the JAX package on one
+    device. ``parallelism`` changes nothing."""
 
     def __init__(self, num_items: int, max_sequence_length: int):
         self._num_items = int(num_items)
@@ -106,6 +119,7 @@ class Hyperparameters:
         self._table_dtype = "float32"
         self._lr_schedule = "constant"
         self._embedding_init_scale = 1.0
+        self._mesh = None
 
     def learning_rate(self, learning_rate: float) -> "Hyperparameters":
         self._learning_rate = float(learning_rate)
@@ -165,6 +179,14 @@ class Hyperparameters:
             self._seed = int(rng) % (2**31)
         return self
 
+    def mesh(self, mesh) -> "Hyperparameters":
+        """Train over a :class:`..parallel.Mesh` with axes ``("data",
+        "model")``: batches split over ``data``, the item table and its
+        optimizer state row-sharded over ``model``. Not written by
+        ``to_dict``; ``clone`` keeps it."""
+        self._mesh = mesh
+        return self
+
     def sparse_updates(self, enabled: "bool | None") -> "Hyperparameters":
         self._sparse_updates = enabled
         return self
@@ -193,9 +215,10 @@ class Hyperparameters:
     def _random_common(cls, num_items: int, rng: np.random.Generator) -> "Hyperparameters":
         """The common draws of the JAX package's ``_random_common``.
         ``parallelism`` is not drawn (it changes nothing); ``num_threads`` is
-        one ``integers`` call over the devices present. numpy draws nothing
-        for a range of one value, so the later fields follow a JAX draw
-        made over as many devices."""
+        one ``integers`` call over the cards present, as the JAX package
+        draws over its devices (it asks for a mesh only under an initialised
+        process group). numpy draws nothing for a range of one value, so the
+        later fields follow a JAX draw made over as many devices."""
         hp = cls(num_items, 2 ** int(rng.integers(4, 8)))
         hp._item_embedding_dim = 2 ** int(rng.integers(4, 8))
         hp._learning_rate = float(10.0 ** rng.uniform(-3.0, 0.5))
@@ -591,10 +614,22 @@ class ImplicitSequenceModel:
     """Base class of the sequence models: ``fit``, user representations,
     ``predict`` and ``recommend_batch``. Subclasses provide the tower
     (``_init_tower``, ``_tower_fn``). All parameters live on ``device``,
-    which the caller names; nothing runs anywhere else."""
+    which the caller names; nothing runs anywhere else.
+
+    Under a mesh every method is collective: every rank of the mesh calls
+    it, with the same arguments (``fit``'s data, the histories, the test
+    set, the checkpoint path), in the same order. The build too: every rank
+    draws the whole table from the same seed, a chunk at a time, and keeps
+    its slab (:func:`.engine.init_embedding_params`), so the initial
+    parameters are the one-rank model's and no rank holds more than its
+    slab and one chunk."""
 
     # Catalog chunk of the streamed top-k (the JAX package's value).
     _SERVE_ITEM_CHUNK = 131072
+    # ``fit`` without a mesh runs each batch as this many shares summed as
+    # a data axis sums them (``engine.make_train_step(shares=...)``): the
+    # collective-free reference a (2, m) mesh's fit is held to bit for bit.
+    _data_shares = 1
     # Above this seen-list width, the k+S candidate post-filter stops paying.
     _SERVE_MAX_POSTFILTER_SEEN = 128
     # Single-pass phase-1 merge when 2x the group-maxima stack fits.
@@ -607,7 +642,11 @@ class ImplicitSequenceModel:
     # Largest subgroup-maxima stack the refinement may allocate.
     _SUBMAX_BUFFER_BYTES = 6 << 30
 
-    def __init__(self, hyper: Hyperparameters, device: "torch.device | str"):
+    def __init__(
+        self, hyper: Hyperparameters, device: "torch.device | str", item_table: Optional[torch.Tensor] = None
+    ):
+        """``item_table``: this rank's slab of a table to take as the
+        model's, on ``device`` (a checkpoint's), instead of drawing one."""
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -616,13 +655,34 @@ class ImplicitSequenceModel:
                 )
         elif device.type != "cpu":
             raise ValueError(f"models run on cuda or cpu, not {device}")
+        if hyper._mesh is None and hyper._num_threads > 1:
+            # num_threads is the reference's data-parallel degree
+            # (src/models/sequence_model.rs:91-102): a (data=n) mesh over
+            # the ranks present, as the JAX package makes one over its
+            # devices; a single process has none.
+            size, _ = world()
+            n = min(hyper._num_threads, size)
+            if n > 1:
+                if n != size:
+                    raise ValueError(
+                        f"num_threads={hyper._num_threads} asks for a mesh of {n} of the "
+                        f"{size} ranks; a mesh spans the whole process group"
+                    )
+                hyper._mesh = make_mesh(data=n, model=1)
         self.hyper = hyper
         self.device = device
         gen = torch.Generator(device=device).manual_seed(hyper._seed)
-        params = init_embedding_params(
-            gen, hyper._num_items, hyper._item_embedding_dim, device,
-            dtype=hyper._table_dtype, init_scale=hyper._embedding_init_scale,
-        )
+        rows = slab_range(hyper._mesh, hyper._num_items)  # raises on an empty slab
+        if item_table is None:
+            params = init_embedding_params(
+                gen, hyper._num_items, hyper._item_embedding_dim, device,
+                dtype=hyper._table_dtype, init_scale=hyper._embedding_init_scale, rows=rows,
+            )
+        else:
+            want = (rows[1] - rows[0], hyper._item_embedding_dim + 1)
+            if tuple(item_table.shape) != want:
+                raise ValueError(f"item_table slab {tuple(item_table.shape)} does not match {want}")
+            params = {"item_table": item_table.to(device, table_dtype(hyper._table_dtype))}
         params["tower"] = self._init_tower(gen, hyper._item_embedding_dim)
         self._params = params
         # Training randomness continues from the parameter draws.
@@ -657,6 +717,8 @@ class ImplicitSequenceModel:
             # Auto: dense full-table updates while the table streams
             # cheaply; beyond that, touched rows only.
             sparse = hp._num_items * max(hp._item_embedding_dim, 1) > (1 << 22)
+        if hp._mesh is not None and hp._mesh.model > 1:
+            sparse = True  # a row-sharded table takes the touched-rows update
         return EngineConfig(
             num_items=hp._num_items,
             loss=hp._loss,
@@ -714,6 +776,12 @@ class ImplicitSequenceModel:
         (first chunk smallest), laid out one per row or packed, and walked
         in ``ceil(n / batch_size)`` minibatches per epoch in a fresh random
         order; the last batch is filled with the zero-mask sentinel row.
+        Under a mesh the batch is rounded up to a multiple of ``data`` (the
+        extra rows read the sentinel window); every rank draws the global
+        permutation and candidates from the same generator and takes its
+        share (:func:`..parallel.sharding.batch_slice`), so the sharded fit
+        sees the one-rank fit's draws, and the epoch losses are summed over
+        the data group.
         Repeated calls continue from the current parameters with a fresh
         optimizer state, as the reference rebuilds its optimizer per fit
         (``src/models/sequence_model.rs:90``). Raises
@@ -721,16 +789,20 @@ class ImplicitSequenceModel:
         :class:`NonFiniteLoss` when the loss sum is not finite.
         """
         hp = self.hyper
+        mesh = hp._mesh
         stream, mask, starts, n, num_examples = self._windows(interactions)
         t_len = hp._max_sequence_length
         batch_size = min(hp._batch_size, n)
+        split = mesh.data if mesh is not None else self._data_shares
+        batch_size = -(-batch_size // split) * split
         num_batches = -(-n // batch_size)  # ceil: no window is dropped
         n_pad = num_batches * batch_size
         epochs = hp._num_epochs
         train_step = make_train_step(
             self._engine_config(), self._tower_fn(), total_steps=num_batches * epochs,
-            generator=self._dropout_generator,
+            generator=self._dropout_generator, mesh=mesh, shares=self._data_shares,
         )
+        share = batch_slice(mesh, batch_size)
         k_cand = WARP_CANDIDATES if hp._loss == Loss.WARP else 1
         params = self._params
         opt_state = init_opt_state(hp._optimizer, params)
@@ -741,17 +813,20 @@ class ImplicitSequenceModel:
             if n_pad > n:  # padding rows read the sentinel window
                 perm = torch.cat([perm, perm.new_full((n_pad - n,), n)])
             for i in range(num_batches):
-                rows = perm[i * batch_size : (i + 1) * batch_size]
+                rows = perm[i * batch_size : (i + 1) * batch_size][share]
                 batch = {"stream": stream[rows], "mask": mask[rows]}
                 if starts is not None:
                     batch["starts"] = starts[rows]
                 candidates = self._step_candidates(
                     epoch * num_batches + i, (batch_size, t_len, k_cand)
-                )
+                )[share]
                 params, opt_state, loss = train_step(params, opt_state, batch, candidates)
                 losses.append(loss)
         if losses:  # the one host sync of the fit
-            epoch_losses = torch.stack(losses).reshape(epochs, num_batches).sum(dim=1).cpu().numpy()
+            step_losses = torch.stack(losses)
+            if mesh is not None:
+                mesh.all_reduce(step_losses, DATA_AXIS)
+            epoch_losses = step_losses.reshape(epochs, num_batches).sum(dim=1).cpu().numpy()
         else:
             epoch_losses = np.zeros((0,), np.float32)
         wall_s = time.perf_counter() - t0
@@ -771,15 +846,25 @@ class ImplicitSequenceModel:
 
     # -- parameters -----------------------------------------------------------
 
+    def _full_table(self) -> torch.Tensor:
+        """The whole item table (the slabs gathered under a model axis)."""
+        return gather_slabs(self._params["item_table"], self.hyper._mesh, self.hyper._num_items)
+
     @property
     def item_embeddings(self) -> np.ndarray:
-        """Item embedding matrix ``[num_items, dim]`` (f32 copy)."""
-        return table_embeddings(self._params).to(torch.float32).cpu().numpy()
+        """Item embedding matrix ``[num_items, dim]`` (f32 copy; every rank
+        gets the whole table)."""
+        return table_embeddings({"item_table": self._full_table()}).to(torch.float32).cpu().numpy()
 
     @property
     def item_biases(self) -> np.ndarray:
-        """Item bias vector ``[num_items]`` (f32 copy)."""
-        return table_biases(self._params).to(torch.float32).cpu().numpy()
+        """Item bias vector ``[num_items]`` (f32 copy; every rank gets the
+        whole table)."""
+        return table_biases({"item_table": self._full_table()}).to(torch.float32).cpu().numpy()
+
+    def _rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """f32 rows ``[M, D + 1]`` of the whole table for in-range ids ``[M]``."""
+        return read_rows(self._params["item_table"], ids, self.hyper._mesh, self.hyper._num_items)
 
     def load_numpy_params(self, tree: dict) -> None:
         """Load parameters given as numpy arrays in the JAX package's tree
@@ -789,17 +874,29 @@ class ImplicitSequenceModel:
 
     def load_params(self, tree: dict) -> None:
         """Load a parameter tree of tensors (on any device) in the JAX
-        package's layout. Paths and shapes must match the model's; the
-        table keeps the model's storage dtype, the tower is f32, and
-        tensors already on this device in those dtypes are taken without a
-        copy."""
+        package's layout. Paths and shapes must match the model's (the whole
+        table's; under a model axis the rank keeps its slab); the table
+        keeps the model's storage dtype, the tower is f32, and tensors
+        already on this device in those dtypes are taken without a copy."""
+        want = (self.hyper._num_items, self.hyper._item_embedding_dim + 1)
+        if tuple(tree["item_table"].shape) != want:
+            raise ValueError(f"item_table {tuple(tree['item_table'].shape)} does not match {want}")
+        lo, hi = slab_range(self.hyper._mesh, want[0])
+        table = tree["item_table"]
+        if (lo, hi) != (0, want[0]):  # a copy of the slab: the whole table may be freed
+            table = table[lo:hi].to(self.device, copy=True)
+        self._install_params(table, tree["tower"])
+
+    def _install_params(self, table: torch.Tensor, tower) -> None:
+        """Take ``table`` (this rank's slab) and ``tower`` (its paths and
+        shapes checked against the model's) as the model's parameters."""
         new = {
-            "item_table": tree["item_table"].to(self.device),
-            "tower": map_leaves(lambda v: v.to(self.device), tree["tower"]),
+            "item_table": table.to(self.device),
+            "tower": map_leaves(lambda v: v.to(self.device), tower),
         }
         if tuple(new["item_table"].shape) != tuple(self._params["item_table"].shape):
             raise ValueError(
-                f"item_table {tuple(new['item_table'].shape)} does not match "
+                f"item_table slab {tuple(new['item_table'].shape)} does not match "
                 f"{tuple(self._params['item_table'].shape)}"
             )
         shapes = [(path, tuple(v.shape)) for path, v in flatten(new["tower"])]
@@ -823,7 +920,7 @@ class ImplicitSequenceModel:
             raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
         u = len(lens)
         idx = torch.from_numpy(inputs).to(self.device).reshape(-1)
-        emb = table_embeddings(self._params).index_select(0, idx).to(torch.float32)
+        emb = self._rows(idx)[:, :-1]
         with fp32_matmul():
             hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1))
         last = torch.from_numpy(lengths - 1).to(self.device)
@@ -852,7 +949,15 @@ class ImplicitSequenceModel:
         """Exact top-``k`` next items for many histories: representations,
         full-catalog scoring, seen-item exclusion (with ``exclude_seen``)
         and the top-k, all on the device. ``return_scores=True`` also
-        returns the items' scores ``dot(user, emb) + bias`` as ``[U, k]``."""
+        returns the items' scores ``dot(user, emb) + bias`` as ``[U, k]``.
+        Raises ``NotImplementedError`` on a row-sharded table (the sharded
+        top-k is ROADMAP item 5b)."""
+        mesh = self.hyper._mesh
+        if mesh is not None and mesh.model > 1:
+            raise NotImplementedError(
+                "recommend_batch on a table row-sharded over the model axis is not ported yet "
+                "(ROADMAP item 5b: the sharded top-k)"
+            )
         if not len(histories):
             return ([], np.zeros((0, k), np.float32)) if return_scores else []
         flat, lens = _flatten(histories)
@@ -893,9 +998,7 @@ class ImplicitSequenceModel:
         ids = np.arange(n) if item_ids is None else np.asarray(item_ids, dtype=np.int64)
         if ids.size and (ids.min() < 0 or ids.max() >= n):
             raise InvalidPredictionValue(f"item_ids outside [0, {n}).")
-        rows = self._params["item_table"].index_select(
-            0, torch.from_numpy(ids.reshape(-1)).to(self.device)
-        ).to(torch.float32)
+        rows = self._rows(torch.from_numpy(ids.reshape(-1)).to(self.device))
         rep = torch.as_tensor(
             np.asarray(user.user_embedding, dtype=np.float32), device=self.device
         )
@@ -906,11 +1009,12 @@ class ImplicitSequenceModel:
         return scores
 
     def clone(self) -> "ImplicitSequenceModel":
-        """Independent copy on the same device: hyperparameters, parameters
-        (deep-copied), the states of the training and dropout generators,
-        so the copy's next ``fit`` draws what this model's next ``fit``
-        would, and the JAX key a checkpoint records."""
-        hyper = type(self.hyper).from_dict(self.hyper.to_dict())
+        """Independent copy on the same device: hyperparameters and the mesh,
+        parameters (deep-copied; under a mesh, this rank's slab), the states
+        of the training and dropout generators, so the copy's next ``fit``
+        draws what this model's next ``fit`` would, and the JAX key a
+        checkpoint records. Collective under a mesh."""
+        hyper = type(self.hyper).from_dict(self.hyper.to_dict()).mesh(self.hyper._mesh)
         m = hyper.build(self.device)
         m._params = {
             "item_table": self._params["item_table"].clone(),
@@ -925,12 +1029,14 @@ class ImplicitSequenceModel:
 
     def save(self, path: str) -> None:
         """Save to the directory ``path`` in the JAX package's checkpoint
-        format (:mod:`..utils.checkpoint`)."""
+        format (:mod:`..utils.checkpoint`; under a mesh the primary rank
+        writes the whole table)."""
         checkpoint.save_model(self, path)
 
     @classmethod
-    def load(cls, path: str, device: "torch.device | str" = "cuda") -> "ImplicitSequenceModel":
+    def load(cls, path: str, device: "torch.device | str" = "cuda", mesh=None) -> "ImplicitSequenceModel":
         """The model saved at ``path`` by either package, on ``device`` (the
         card unless the caller asks for ``"cpu"``; without CUDA a ``cuda``
-        load raises)."""
-        return checkpoint.load_model(path, device)
+        load raises), over ``mesh`` when given (each rank reads its slab,
+        whatever mesh saved it)."""
+        return checkpoint.load_model(path, device, mesh=mesh)

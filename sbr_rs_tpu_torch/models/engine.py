@@ -32,6 +32,27 @@ layout), as the JAX step does it:
 
 PyTorch runs eagerly: there is no compiled program, and the step returns
 its loss as a device tensor so the host never waits on it.
+
+Under a mesh (:mod:`..parallel`) the step is collective: every rank of the
+mesh calls it with its own share of the batch (the ``data`` axis) and its
+own slab of the table (the ``model`` axis, where XLA would partition the
+JAX step):
+
+* the row gathers and WARP's candidate scores read the whole table through
+  :func:`..parallel.sharding.gather_rows_sharded` and
+  :func:`..parallel.sharding.cand_score_sharded` (P1, P3/P4 on the slab, a
+  sum over the model group), equal bit for bit to the unsharded ones;
+* the tower's gradients are summed over the data group, so every replica
+  applies the same update;
+* the touched rows' gradients and flags are gathered over the data group,
+  every rank's stream part in data order and then every rank's negative
+  part: the one-rank step's ``flat_idx`` order, so :func:`..ops.optimizers.
+  dedupe_and_sum` sums each row's run as one rank would. Each rank then
+  updates the rows of its own slab (local ids; the others invalid).
+
+After each step the replicas along the data axis hold the same bits,
+because every collective returns the same bits on every rank. The loss
+stays the rank's own share; ``fit`` sums the shares over the data group.
 """
 
 from __future__ import annotations
@@ -39,14 +60,16 @@ from __future__ import annotations
 import dataclasses
 import inspect
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..ops import optimizers as opt_ops
 from ..ops.losses import pairwise_loss
-from ..ops.row_kernels import cand_score, gather_rows, scatter_add_rows_
+from ..ops.row_kernels import scatter_add_rows_
 from ..ops.sampling import WARP_CANDIDATES, warp_select_onehot
+from ..parallel.mesh import DATA_AXIS
+from ..parallel.sharding import batch_slice, cand_score_sharded, gather_rows_sharded, slab_range, to_local
 from ..utils.tree import flatten, unflatten
 from . import Loss, Optimizer
 
@@ -79,6 +102,12 @@ def table_dtype(name: str) -> torch.dtype:
         raise ValueError(f"table_dtype must be one of {sorted(_DTYPES)}, got {name!r}") from None
 
 
+# Rows of the item table drawn by one ``normal_`` call: the table is drawn
+# chunk by chunk, so a rank can keep its slab and hold no more than one
+# chunk of the rest.
+INIT_CHUNK_ROWS = 1 << 20
+
+
 def init_embedding_params(
     generator: torch.Generator,
     num_items: int,
@@ -86,16 +115,31 @@ def init_embedding_params(
     device: torch.device,
     dtype: str = "float32",
     init_scale: float = 1.0,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """The fused item table ``[num_items, dim + 1]`` in the storage dtype:
     embedding columns ``N(0, 1) * init_scale / dim`` (reference
     ``src/models/lstm.rs:22-25``, as the JAX package draws them) and the
     bias as the last column, zero (``src/models/lstm.rs:181``). Drawn in
-    place on ``device`` from ``generator``."""
-    table = torch.empty((num_items, dim + 1), dtype=table_dtype(dtype), device=device)
-    emb = table[:, :dim]
-    emb.normal_(generator=generator)
-    emb.mul_(init_scale / dim)
+    place on ``device`` from ``generator``, ``INIT_CHUNK_ROWS`` rows at a
+    time. ``rows = (lo, hi)`` keeps those rows alone (a rank's slab): the
+    chunks are drawn all the same, the others into a scratch chunk of the
+    same layout, so the rows kept are the whole draw's bit for bit and the
+    generator ends where the whole draw leaves it."""
+    lo, hi = (0, num_items) if rows is None else rows
+    table = torch.empty((hi - lo, dim + 1), dtype=table_dtype(dtype), device=device)
+    scratch = None
+    for a in range(0, num_items, INIT_CHUNK_ROWS):
+        b = min(a + INIT_CHUNK_ROWS, num_items)
+        if lo <= a and b <= hi:
+            table[a - lo : b - lo, :dim].normal_(generator=generator)
+            continue
+        if scratch is None:
+            scratch = torch.empty((min(INIT_CHUNK_ROWS, num_items), dim + 1), dtype=table.dtype, device=device)
+        scratch[: b - a, :dim].normal_(generator=generator)
+        if max(a, lo) < min(b, hi):
+            table[max(a, lo) - lo : min(b, hi) - lo] = scratch[max(a, lo) - a : min(b, hi) - a]
+    table[:, :dim].mul_(init_scale / dim)
     table[:, dim].zero_()
     return {"item_table": table}
 
@@ -141,8 +185,14 @@ def make_train_step(
     tower_apply: Callable[..., torch.Tensor],
     total_steps: int = 0,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
+    shares: int = 1,
 ) -> Callable:
-    """Build the training step.
+    """Build the training step (over ``mesh``'s ranks when given: module
+    docstring). ``shares > 1`` (no mesh) runs each batch as that many
+    contiguous shares in this process and sums them as a ``(data=shares)``
+    mesh's ranks do: the collective-free reference of the data axis (with
+    two shares, bit-equal to a ``(2, m)`` mesh's step on the same draws).
 
     ``tower_apply(tower_params, x [B, T, D], starts=None) -> hidden [B, T, D]``
     must be differentiable with respect to ``x`` and the tower parameters,
@@ -171,20 +221,21 @@ def make_train_step(
     k_cand = WARP_CANDIDATES if is_warp else 1
     num_items = config.num_items
     kind = config.optimizer
+    tower_params = inspect.signature(tower_apply).parameters
     tower_kwargs = {}
-    if "generator" in inspect.signature(tower_apply).parameters:
+    if "generator" in tower_params:
         tower_kwargs["generator"] = generator
+    split = mesh is not None and mesh.data > 1
+    sharded = mesh is not None and mesh.model > 1
+    if sharded and not config.sparse_updates:
+        raise ValueError("a row-sharded table takes the sparse update")
+    if shares > 1 and mesh is not None:
+        raise ValueError("shares emulate a data axis in one process: give no mesh")
 
-    def train_step(
-        params: Dict,
-        opt_state: Dict,
-        batch: Dict[str, torch.Tensor],
-        candidates: torch.Tensor,
-        lr: Optional[float] = None,
-        l2: Optional[float] = None,
-    ):
-        lr = config.learning_rate if lr is None else lr
-        l2 = config.l2_penalty if l2 is None else l2
+    def share_grads(params, batch, candidates, dropout_rows):
+        """The loss sum, the tower's gradients and the touched rows
+        ``(d_rows, flat_idx, occ_valid, bias_occ)`` of one share of a
+        batch (stream slots first, then the negatives)."""
         stream = batch["stream"].long()
         mask = batch["mask"]
         starts = batch.get("starts")
@@ -200,20 +251,25 @@ def make_train_step(
 
         def gather(idx: torch.Tensor) -> torch.Tensor:
             # f32 copies of the rows, whatever the storage dtype.
-            return gather_rows(table, idx.reshape(-1)).reshape(idx.shape + (c_param,))
+            rows = gather_rows_sharded(table, idx.reshape(-1), mesh, num_items)
+            return rows.reshape(idx.shape + (c_param,))
 
         rows_s = gather(stream).requires_grad_()
         tower_pairs = flatten(params["tower"])
         paths = [path for path, _ in tower_pairs]
         tower_leaves = [p.detach().requires_grad_() for _, p in tower_pairs]
         in_emb, pos_rows = rows_s[:, :t, :-1], rows_s[:, 1:, :]
-        hidden = tower_apply(unflatten(paths, tower_leaves), in_emb, starts=starts, **tower_kwargs)
+        kwargs = dict(tower_kwargs)
+        if dropout_rows is not None and "dropout_rows" in tower_params:
+            kwargs["dropout_rows"] = dropout_rows
+        hidden = tower_apply(unflatten(paths, tower_leaves), in_emb, starts=starts, **kwargs)
         haug = torch.cat([hidden, hidden.new_ones((b, t, 1))], dim=-1)
         pos_score = (haug * pos_rows).sum(-1)
         if is_warp:
             with torch.no_grad():
-                cand_scores = cand_score(
-                    haug.detach().reshape(b * t, c_param), table, candidates.reshape(b * t, k_cand)
+                cand_scores = cand_score_sharded(
+                    haug.detach().reshape(b * t, c_param), table, candidates.reshape(b * t, k_cand),
+                    mesh, num_items,
                 ).reshape(b, t, k_cand)
                 onehot = warp_select_onehot(pos_score.detach(), cand_scores)
                 negatives = (candidates * onehot.long()).sum(-1)
@@ -240,6 +296,31 @@ def make_train_step(
         # row touched only as an input gets no L2, state or step.
         bias_occ = torch.cat([tg_occ, mask_flat])
         flat_idx = torch.cat([stream.reshape(-1), negatives.reshape(-1)])
+        return loss_sum.detach(), grads[2:], (d_rows, flat_idx, occ_valid, bias_occ)
+
+    def train_step(
+        params: Dict,
+        opt_state: Dict,
+        batch: Dict[str, torch.Tensor],
+        candidates: torch.Tensor,
+        lr: Optional[float] = None,
+        l2: Optional[float] = None,
+    ):
+        lr = config.learning_rate if lr is None else lr
+        l2 = config.l2_penalty if l2 is None else l2
+        b, t = batch["stream"].shape[0], batch["stream"].shape[1] - 1
+        table = params["item_table"]
+        c_param = table.shape[1]
+        dev = table.device
+        if shares > 1:
+            loss_sum, tower_grads, rows = _sum_shares(share_grads, shares, params, batch, candidates, generator)
+        else:
+            dropout_rows = (b * mesh.data, batch_slice(mesh, b * mesh.data)) if split else None
+            loss_sum, tower_grads, rows = share_grads(params, batch, candidates, dropout_rows)
+            if split:
+                tower_grads = _sum_over_data(mesh, tower_grads)
+                rows = _gather_over_data(mesh, b * (t + 1), *rows)
+        d_rows, flat_idx, occ_valid, bias_occ = rows
 
         step = opt_state["step"]
         lr_t = scheduled_lr(lr, config.lr_schedule, step, total_steps)
@@ -247,6 +328,8 @@ def make_train_step(
             dd, summed, bias_valid = opt_ops.dedupe_and_sum(
                 flat_idx, occ_valid, d_rows, bias_occ, num_items
             )
+            if sharded:
+                dd = _slab_rows(dd, *slab_range(mesh, num_items))
             opt_ops.sparse_update(
                 kind, lr_t, l2, table, opt_state["item_table"], dd, summed, step,
                 bias_valid=bias_valid,
@@ -270,9 +353,72 @@ def make_train_step(
                 kind, lr_t, l2, table, opt_state["item_table"], grad,
                 touched[:num_items], step, bias_touched=bias_touched[:num_items],
             )
-        for (path, p), d_p in zip(tower_pairs, grads[2:]):
+        for (path, p), d_p in zip(flatten(params["tower"]), tower_grads):
             opt_ops.dense_update(kind, lr_t, l2, p, opt_state["tower"][path], d_p, step)
         opt_state["step"] = step + 1
-        return params, opt_state, loss_sum.detach()
+        return params, opt_state, loss_sum
 
     return train_step
+
+
+def _sum_over_data(mesh, grads):
+    """The tower's gradients summed over the data group, in one collective."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    mesh.all_reduce(flat, DATA_AXIS)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at : at + g.numel()].reshape(g.shape))
+        at += g.numel()
+    return out
+
+
+def _in_one_rank_order(parts, split_at):
+    """The shares' first ``split_at`` entries (their stream slots) in share
+    order, then the rest of each (their negatives): the one-rank step's
+    ``flat_idx`` order."""
+    return torch.cat([p[:split_at] for p in parts] + [p[split_at:] for p in parts])
+
+
+def _gather_over_data(mesh, split_at, d_rows, flat_idx, occ_valid, bias_occ):
+    """The data group's touched rows in the one-rank step's order. The ids
+    and the two flags travel as one int64 ``id * 4 + occ * 2 + bias``."""
+    meta = flat_idx * 4 + occ_valid.long() * 2 + bias_occ.long()
+    d_rows = _in_one_rank_order(mesh.all_gather(d_rows, DATA_AXIS), split_at)
+    meta = _in_one_rank_order(mesh.all_gather(meta, DATA_AXIS), split_at)
+    return d_rows, meta >> 2, (meta & 2) > 0, (meta & 1) > 0
+
+
+def _sum_shares(share_grads, shares, params, batch, candidates, generator):
+    """One process's counterpart of a ``(data=shares)`` mesh's step: the
+    batch's ``shares`` contiguous shares one after the other, their losses
+    and tower gradients summed in share order, their rows in the one-rank
+    order. Each share draws attention's dropout masks from the generator's
+    state at the step's start, as each rank does. With two shares every
+    sum is the data group's single ``a + b``, so the step is the mesh's bit
+    for bit."""
+    b, t = batch["stream"].shape[0], batch["stream"].shape[1] - 1
+    if b % shares:
+        raise ValueError(f"a batch of {b} rows does not split into {shares} shares")
+    n = b // shares
+    state = None if generator is None else generator.get_state()
+    parts = []
+    for s in range(shares):
+        rows = slice(s * n, (s + 1) * n)
+        if state is not None:
+            generator.set_state(state)
+        share = {k: v[rows] for k, v in batch.items()}
+        parts.append(share_grads(params, share, candidates[rows], (b, rows)))
+    loss_sum, tower_grads = parts[0][0], parts[0][1]
+    for loss, grads, _ in parts[1:]:
+        loss_sum = loss_sum + loss
+        tower_grads = [a + g for a, g in zip(tower_grads, grads)]
+    rows = tuple(_in_one_rank_order([p[2][i] for p in parts], n * (t + 1)) for i in range(4))
+    return loss_sum, tower_grads, rows
+
+
+def _slab_rows(dd, lo: int, hi: int):
+    """``dd`` with its rows in slab-local ids, the rows of other slabs
+    marked invalid (id ``hi - lo``: the scatters drop it)."""
+    local, in_slab = to_local(dd.row_ids, lo, hi)
+    valid = dd.valid & in_slab
+    return opt_ops.DedupedRows(dd.order, dd.seg_id, torch.where(valid, local, hi - lo), valid)

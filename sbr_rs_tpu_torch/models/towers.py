@@ -172,6 +172,7 @@ def attention_apply(
     dropout: float = 0.0,
     starts: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    dropout_rows=None,
 ) -> torch.Tensor:
     """Run the causal transformer encoder over ``x [B, T, D]`` to ``[B, T, D]``.
 
@@ -188,6 +189,10 @@ def attention_apply(
     each residual branch (the SASRec placement), drawn from ``generator``
     (:func:`dropout_mask`) only when both ``dropout > 0`` and a generator
     are given; serving and evaluation pass none, so they are deterministic.
+    ``dropout_rows = (global_batch, rows)``: ``x`` is the slice ``rows`` of
+    a batch of ``global_batch`` rows (a rank's share under a data axis);
+    each mask is drawn for the whole batch and sliced, so the ranks draw
+    what one rank would.
     """
     b_, t_, d = x.shape
     x = x.to(torch.float32)
@@ -220,7 +225,12 @@ def attention_apply(
     def drop(v):
         if not use_dropout:
             return v
-        return torch.where(dropout_mask(generator, v.shape, keep, dev), v / keep, 0.0)
+        if dropout_rows is None:
+            mask = dropout_mask(generator, v.shape, keep, dev)
+        else:  # the whole batch's mask, this rank's rows of it
+            global_batch, rows = dropout_rows
+            mask = dropout_mask(generator, (global_batch,) + tuple(v.shape[1:]), keep, dev)[rows]
+        return torch.where(mask, v / keep, 0.0)
 
     h = drop(h)
     hd = d // num_heads

@@ -70,15 +70,27 @@ def trace(log_dir: str) -> Iterator[None]:
     """Capture a ``torch.profiler`` trace of the enclosed region into
     ``log_dir`` (a ``*.pt.trace.json`` file; view it with TensorBoard's
     profile plugin or Perfetto): the host's operators always, and the CUDA
-    kernels and copies when a card is present (the region ends when the
-    card has run what it launched). In a process that has run many
-    profiler sessions before, torch's profiler can leave the first kernels
-    of a region out of the trace (seen with torch 2.11 on an H100); a fresh
-    process traces them all."""
+    kernels and copies when a card is present. The region starts when the
+    card has run what was launched before it and ends when the card has run
+    what it launched.
+
+    Known fault (torch 2.11 on an H100): in a process that has kept the
+    card busy for a while, the trace can lack the region's first kernel
+    records while every launch call is there (none lost after 300 short
+    profiler sessions; 6-8 of 79 after 90 s of back-to-back matmuls, also
+    after 30 s of idle time; 18 after ``chip_smoke.main()``), erratically
+    from run to run. Neither this synchronisation nor a warm-up step
+    (``schedule``), a 50 ms wait inside the profiler, ``TEARDOWN_CUPTI=0`` or
+    a sleep kernel at the region's start keeps them (the sleep kernel is
+    lost, and as many after it). A fresh process traces them all.
+    ``scripts/torch_trace_probe.py`` checks it;
+    ``scripts/torch_trace_probe.py --age`` reproduces it."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    if cuda:
+        torch.cuda.synchronize()
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
         if cuda:

@@ -19,18 +19,23 @@ with three conventions of flax's:
   chunked dicts, made after that copy, keep the order above.
 
 :func:`write` produces the bytes flax produces for the same tree, from torch
-tensors (on any device) or numpy arrays. It streams: a leaf is copied to the
-host and written a piece of ``PIECE_BYTES`` at a time, so the host never
-holds the whole blob, and the sha256 of the bytes is computed as they are
-written. :func:`read` parses such a file as it hashes it and places each
-array straight onto a device. bfloat16 travels as its bits under the dtype
-name ``bfloat16``, as flax writes it with ``ml_dtypes``.
+tensors (on any device), numpy arrays or :class:`ByteSource` leaves (bytes
+that arrive from elsewhere, such as the slabs of a table sharded over
+ranks). It streams: a leaf is copied to the host and written a piece of
+``PIECE_BYTES`` at a time, so the host never holds the whole blob, and the
+sha256 of the bytes is computed as they are written. :func:`read` parses
+such a file as it hashes it and places each array straight onto a device;
+it can keep a range of rows of a leaf and pass over the rest (a rank's
+slab), and skip the hash (the ranks that do not check it). bfloat16 travels
+as its bits under the dtype name ``bfloat16``, as flax writes it with
+``ml_dtypes``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import os
 import struct
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -118,6 +123,23 @@ def _str(s: str) -> bytes:
 # -- writing -------------------------------------------------------------------
 
 
+class ByteSource:
+    """An array leaf whose bytes come from elsewhere: ``dtype`` (torch),
+    ``shape``, and :meth:`copy_range`, which :func:`write` calls over the
+    leaf's C-order bytes once, in order, a piece at a time."""
+
+    def __init__(self, dtype: torch.dtype, shape: Tuple[int, ...]):
+        self.dtype, self.shape = dtype, tuple(shape)
+
+    def __len__(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+    def copy_range(self, dest: torch.Tensor, start: int, stop: int) -> None:
+        """Fill the pinned host uint8 tensor ``dest`` with bytes ``[start,
+        stop)`` of the leaf."""
+        raise NotImplementedError
+
+
 class _Raw:
     """Bytes ``[start, stop)`` of a leaf's flat byte view (a 1-D uint8
     tensor on any device, or a 1-D uint8 numpy array)."""
@@ -127,8 +149,12 @@ class _Raw:
 
 
 def _leaf_bytes(x) -> Tuple[str, Tuple[int, ...], Any, int]:
-    """``(dtype name, shape, flat uint8 view, item size)`` of a tensor or
-    an array."""
+    """``(dtype name, shape, flat uint8 view, item size)`` of a tensor, an
+    array or a :class:`ByteSource` (its own view)."""
+    if isinstance(x, ByteSource):
+        if x.dtype not in _DTYPE_NAMES:
+            raise TypeError(f"no msgpack dtype name for {x.dtype}")
+        return _DTYPE_NAMES[x.dtype], x.shape, x, x.dtype.itemsize
     if isinstance(x, torch.Tensor):
         if x.dtype not in _DTYPE_NAMES:
             raise TypeError(f"no msgpack dtype name for {x.dtype}")
@@ -181,7 +207,7 @@ def _encode(obj, out: List, chunkable: bool) -> None:
         out.append(_sized(len(obj), _ARRAY))
         for item in obj:
             _encode(item, out, False)
-    elif isinstance(obj, (torch.Tensor, np.ndarray)):
+    elif isinstance(obj, (torch.Tensor, np.ndarray, ByteSource)):
         name, shape, view, itemsize = _leaf_bytes(obj)
         nbytes = len(view)
         if not (chunkable and nbytes > MAX_CHUNK_SIZE):
@@ -202,7 +228,10 @@ def _encode(obj, out: List, chunkable: bool) -> None:
 
 
 def _staging(count: int) -> List[torch.Tensor]:
-    return [torch.empty(PIECE_BYTES, dtype=torch.uint8, pin_memory=True) for _ in range(count)]
+    # Pinned where a card is present (a process without one stages sources'
+    # pieces in plain host memory).
+    pin = torch.cuda.is_available()
+    return [torch.empty(PIECE_BYTES, dtype=torch.uint8, pin_memory=pin) for _ in range(count)]
 
 
 def _timed(fn, buf) -> float:
@@ -218,11 +247,12 @@ def write(fileobj: BinaryIO, tree, timings: Optional[Dict[str, float]] = None) -
     what ``flax.serialization.msgpack_serialize`` writes for the same tree
     as numpy arrays. Returns the sha256 (hex) of the bytes written.
 
-    A device leaf is copied to the host a piece of ``PIECE_BYTES`` at a time
-    through two pinned buffers; each piece is hashed and written by two
-    threads while the next one is copied. With ``timings``, adds the busy
-    seconds of the three under ``"d2h_s"``, ``"hash_s"`` and ``"write_s"``,
-    and the bytes under ``"bytes"``."""
+    A device leaf (or a :class:`ByteSource`) is copied to the host a piece
+    of ``PIECE_BYTES`` at a time through two pinned buffers; each piece is
+    hashed and written by two threads while the next one is copied. With
+    ``timings``, adds the busy seconds of the three under ``"d2h_s"`` (a
+    source's pieces: the time they took to arrive), ``"hash_s"`` and
+    ``"write_s"``, and the bytes under ``"bytes"``."""
     segments: List = []
     _encode(tree, segments, True)
     sha = hashlib.sha256()
@@ -250,7 +280,7 @@ def write(fileobj: BinaryIO, tree, timings: Optional[Dict[str, float]] = None) -
                 b = min(a + PIECE_BYTES, seg.stop)
                 if isinstance(seg.view, np.ndarray):
                     emit(memoryview(seg.view[a:b]))
-                elif seg.view.device.type == "cpu":
+                elif isinstance(seg.view, torch.Tensor) and seg.view.device.type == "cpu":
                     emit(memoryview(seg.view[a:b].numpy()))
                 else:
                     staging = staging or _staging(2)
@@ -258,7 +288,10 @@ def write(fileobj: BinaryIO, tree, timings: Optional[Dict[str, float]] = None) -
                     for f in in_use.pop(slot, ()):
                         f.result()
                     t0 = time.perf_counter()
-                    staging[slot][: b - a].copy_(seg.view[a:b])
+                    if isinstance(seg.view, ByteSource):
+                        seg.view.copy_range(staging[slot][: b - a], a, b)
+                    else:
+                        staging[slot][: b - a].copy_(seg.view[a:b])
                     d2h_s += time.perf_counter() - t0
                     in_use[slot] = emit(memoryview(staging[slot][: b - a].numpy()))
         if small:
@@ -295,11 +328,18 @@ _FIXEXT_LENGTHS = {v: k for k, v in _FIXEXT.items()}
 
 class _Reader:
     """A msgpack parser over a file that hashes every byte it reads, in
-    order, on one worker thread."""
+    order, on one worker thread (``verify``; else it hashes nothing and
+    seeks past what it does not keep). ``select`` maps a leaf's key path to
+    ``(lo, hi, rows)``: keep rows ``[lo, hi)`` of a ``rows``-row leaf."""
 
-    def __init__(self, fileobj: BinaryIO, device: torch.device):
+    def __init__(self, fileobj: BinaryIO, device: torch.device, select=None, verify: bool = True):
         self.f = fileobj
         self.device = device
+        self.select = select or {}
+        self.verify = verify
+        self.path: List[str] = []
+        self.scratch: Optional[List[np.ndarray]] = None
+        self.scratch_busy: Dict[int, list] = {}
         self.sha = hashlib.sha256()
         self.hasher = ThreadPoolExecutor(1)
         self.futures: list = []
@@ -311,6 +351,8 @@ class _Reader:
         self.events: Dict[int, Tuple[torch.cuda.Event, list]] = {}
 
     def _hash(self, data) -> list:
+        if not self.verify:
+            return []
         f = self.hasher.submit(_timed, self.sha.update, data)
         self.futures.append(f)
         return [f]
@@ -340,6 +382,43 @@ class _Reader:
         out = self.buf[self.pos : self.pos + n]
         self.pos += n
         return out
+
+    def skip(self, n: int) -> None:
+        """Pass over ``n`` bytes: hashed when verifying (read through two
+        host buffers), else sought past."""
+        k = min(n, len(self.buf) - self.pos)
+        if k:
+            self.take(k)
+        rest = n - k
+        if not rest:
+            return
+        self.offset += len(self.buf) + rest
+        self.buf, self.pos = b"", 0
+        if not self.verify:
+            self.f.seek(rest, os.SEEK_CUR)
+            return
+        self.scratch = self.scratch or [np.empty(PIECE_BYTES, np.uint8) for _ in range(2)]
+        for i, a in enumerate(range(0, rest, PIECE_BYTES)):
+            slot = i % 2
+            for f in self.scratch_busy.pop(slot, ()):
+                f.result()
+            view = memoryview(self.scratch[slot][: min(PIECE_BYTES, rest - a)])
+            self._readinto(view)
+            self.scratch_busy[slot] = self._hash(view)
+
+    def kept_rows(self, shape: Tuple[int, ...], itemsize: int):
+        """``(first byte, end byte, shape)`` kept of the leaf at the current
+        key path, or ``None`` to keep all of it."""
+        sel = self.select.get(tuple(self.path))
+        if sel is None:
+            return None
+        lo, hi, rows = sel
+        if not shape or shape[0] != rows:
+            raise ValueError(
+                f"Checkpoint state/config mismatch: {'.'.join(self.path)} has shape {shape}, not {rows} rows"
+            )
+        row = math.prod(shape[1:]) * itemsize
+        return lo * row, hi * row, (hi - lo,) + tuple(shape[1:])
 
     def unpack(self, fmt: str):
         return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
@@ -388,7 +467,7 @@ class _Reader:
         for event, _ in self.events.values():
             event.synchronize()
         busy = sum(f.result() for f in self.futures)
-        return self.sha.hexdigest(), busy
+        return (self.sha.hexdigest() if self.verify else None), busy
 
     # -- objects --
 
@@ -432,7 +511,9 @@ class _Reader:
             key = self.value()
             if i == 0 and key == CHUNKED:
                 return self.chunked(n)
+            self.path.append(str(key))
             out[key] = self.value()
+            self.path.pop()
         return out
 
     def map_len(self) -> int:
@@ -453,8 +534,16 @@ class _Reader:
         if ext_type not in (_EXT_NDARRAY, _EXT_NPSCALAR):
             raise ValueError(f"unknown msgpack extension type {ext_type}")
         dtype, shape, nbytes = self.array_header(n)
-        dest = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        kept = self.kept_rows(shape, dtype.itemsize)
+        if kept is None:
+            dest = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            self.fill(dest)
+            return dest.view(dtype).reshape(shape)
+        b0, b1, shape = kept
+        dest = torch.empty(b1 - b0, dtype=torch.uint8, device=self.device)
+        self.skip(b0)
         self.fill(dest)
+        self.skip(nbytes - b1)
         return dest.view(dtype).reshape(shape)
 
     def array_header(self, n: int) -> Tuple[torch.dtype, Tuple[int, ...], int]:
@@ -487,7 +576,7 @@ class _Reader:
         shape = tuple(dims[str(i)] for i in range(len(dims)))
         if self.value() != "chunks":
             raise ValueError("a chunked array does not follow flax's layout")
-        dest, dtype, offset = None, None, 0
+        dest, dtype, offset, kept = None, None, 0, None
         for i in range(self.map_len()):
             if self.value() != str(i):
                 raise ValueError("a chunked array's chunks are out of order")
@@ -500,27 +589,45 @@ class _Reader:
             chunk_dtype, _, nbytes = self.array_header(length)
             if dest is None:
                 dtype = chunk_dtype
-                dest = torch.empty(math.prod(shape) * dtype.itemsize, dtype=torch.uint8, device=self.device)
-            if chunk_dtype != dtype or offset + nbytes > dest.numel():
+                total = math.prod(shape) * dtype.itemsize
+                kept = self.kept_rows(shape, dtype.itemsize) or (0, total, shape)
+                dest = torch.empty(kept[1] - kept[0], dtype=torch.uint8, device=self.device)
+            if chunk_dtype != dtype or offset + nbytes > total:
                 raise ValueError("a chunked array's chunks do not match its shape")
-            self.fill(dest[offset : offset + nbytes])
+            # The chunk's bytes [offset, offset + nbytes) of the leaf: what
+            # falls inside the kept range is read, the rest passed over.
+            a, b = (min(max(x, offset), offset + nbytes) for x in kept[:2])
+            self.skip(a - offset)
+            self.fill(dest[a - kept[0] : b - kept[0]])
+            self.skip(offset + nbytes - b)
             offset += nbytes
-        if dest is None or offset != dest.numel():
+        if dest is None or offset != total:
             raise ValueError("a chunked array's chunks do not fill its shape")
-        return dest.view(dtype).reshape(shape)
+        return dest.view(dtype).reshape(kept[2])
 
 
-def read(path, device: "torch.device | str" = "cpu", timings: Optional[Dict[str, float]] = None):
+def read(
+    path,
+    device: "torch.device | str" = "cpu",
+    timings: Optional[Dict[str, float]] = None,
+    select: Optional[Dict[Tuple[str, ...], Tuple[int, int, int]]] = None,
+    verify: bool = True,
+):
     """Parse the flax msgpack file at ``path``: ``(tree, sha256 hex of the
     file)``. Dicts, lists and scalars come back as Python objects, array
     leaves as torch tensors on ``device`` (flax's chunked arrays joined, in
     place), bfloat16 ones as ``torch.bfloat16``. The file is read once,
     hashed as it is read; a device's leaves go through two pinned buffers.
-    With ``timings``, adds the seconds spent reading the file and hashing
-    it under ``"read_s"`` and ``"hash_s"``."""
+    ``select`` maps a leaf's key path (``("params", "item_table")``) to
+    ``(lo, hi, rows)``: that leaf must have ``rows`` rows, and only rows
+    ``[lo, hi)`` are kept (the bytes before and after are hashed, not
+    kept). With ``verify=False`` nothing is hashed, what is not kept is
+    sought past, and the hash returned is ``None``. With ``timings``, adds
+    the seconds spent reading the file and hashing it under ``"read_s"``
+    and ``"hash_s"``."""
     device = torch.device(device)
     with open(path, "rb", buffering=0) as f:
-        reader = _Reader(f, device)
+        reader = _Reader(f, device, select, verify)
         try:
             tree = reader.value()
             digest, hash_s = reader.finish()

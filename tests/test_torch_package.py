@@ -31,7 +31,7 @@ def test_import_leaves_jax_out():
         "sbr_rs_tpu_torch.models.engine, sbr_rs_tpu_torch.evaluation, sbr_rs_tpu_torch.ops.row_kernels, "
         "sbr_rs_tpu_torch.models.attention, sbr_rs_tpu_torch.models.ewma, sbr_rs_tpu_torch.models.gru, "
         "sbr_rs_tpu_torch.models.towers, sbr_rs_tpu_torch.utils.tree, sbr_rs_tpu_torch.utils.checkpoint, "
-        "sbr_rs_tpu_torch.utils.msgpack_codec, sbr_rs_tpu_torch.utils.metrics; "
+        "sbr_rs_tpu_torch.utils.msgpack_codec, sbr_rs_tpu_torch.utils.metrics, sbr_rs_tpu_torch.parallel; "
         "bad = [m for m in ('jax', 'flax', 'msgpack', 'ml_dtypes', 'sbr_rs_tpu') if m in sys.modules]; "
         "assert not bad, bad; "
         "assert {'UserId', 'ItemId', 'Timestamp', '__version__'} <= set(sbr_rs_tpu_torch.__all__); "
@@ -44,7 +44,9 @@ def test_import_leaves_jax_out():
 
 def test_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from) (jax|flax|msgpack|sbr_rs_tpu)\b", re.MULTILINE)
-    files = sorted((ROOT / "sbr_rs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "sbr_rs_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_multiprocess_fit.py",
+    ]
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
