@@ -53,7 +53,7 @@ attention families, one phase per printed line:
 5. the running-merge path (1,000,000 items, 512 users, merge budget 0), which
    launches the 3xTF32 K3 chunk by chunk and certifies each user, checked
    the same way, with the users sent to the FP32 K3;
-5b. a 1,000,000-item catalog of 64 copies of 15,625 items (every copy keeps
+5b. a 1,000,000-item catalog of 100 copies of 10,000 items (every copy keeps
    its item's row): every user's top-10 ties with its certificate's
    threshold, so each one is rescored through the FP32 K4; checked the same
    way;
@@ -173,7 +173,18 @@ attention families, one phase per printed line:
    slab), and ckpt-10M-sharded loaded at world size 2, each slab's sha256
    that of the world-size-1 load; the launches of K1, K2, dW_h, P1, P2, P4
    and K5 on the mesh path (rank 0's). With two cards or more, the fit
-   again over NCCL, one rank a card.
+   again over NCCL, one rank a card;
+18c. serving on the row-sharded table, in 18b's launch of four ranks on
+   the (2, 2) mesh (``serve_mesh_phase``): serve-10M-mesh (phase 4's model
+   and 4096 histories, each rank a 5,000,000-row slab, users/s the median
+   of 3 batches after a warm-up), serve-1M-merge-mesh (phase 5's, merge
+   budget 0: K3 on each 500,000-row slab) and phase 5b's catalog of copies
+   (the single pass and the merge: every user rechecked on every slab,
+   through both FP32 routes); each against world size 1's lists of phases
+   4-5c (scores within TOL_REL relative, ids except at ties), the four
+   ranks' ids, scores and ``predict`` scores bit-equal (sha256), with rank
+   0's collectives a batch, the users rechecked (rank 0's and the sum) and
+   the path's launches of K1, K4, K3 and both FP32 routes (rank 0's).
 
 It then prints the kernels' JSON line (each kernel's launches on the main
 paths, in all and by path, largest error, card and plain times, its bound on this card, by the
@@ -211,7 +222,10 @@ SERVE_CHUNK = 131072
 K = 10
 REF_USERS = 256
 # Phase 5b: a catalog of REPEATS copies of N_ITEMS_MERGE / REPEATS items.
-REPEATS = 64
+# Every user is rechecked while a catalog (or phase 18c's slab of half of
+# it) holds more copies of each item than the k + S <= 41 groups phase 1
+# keeps.
+REPEATS = 100
 # Phase 5d, serve-50M-merge: a catalog past the single-pass merge budget.
 N_ITEMS_50M = 50_000_000
 
@@ -326,9 +340,9 @@ class SmokeFailure(Exception):
 # the first checkout on sys.path.
 
 
-def serving_model(num_items, dev, seed=42):
-    """serve-10M's model (phase 4) over ``num_items`` items: LSTM-127
-    Normal, T=32, an f32 table, weights from ``seed``."""
+def serving_hyper(num_items, seed=42):
+    """serve-10M's hyperparameters (phase 4) over ``num_items`` items:
+    LSTM-127 Normal, T=32, an f32 table, weights from ``seed``."""
     from sbr_rs_tpu_torch.models import lstm
 
     return (
@@ -336,8 +350,12 @@ def serving_model(num_items, dev, seed=42):
         .embedding_dim(DIM)
         .lstm_variant(lstm.LSTMVariant.NORMAL)
         .from_seed(seed)
-        .build(dev)
     )
+
+
+def serving_model(num_items, dev, seed=42):
+    """serve-10M's model (phase 4) over ``num_items`` items (:func:`serving_hyper`)."""
+    return serving_hyper(num_items, seed).build(dev)
 
 
 def serving_histories(num_items, users=USERS, seed=7):
@@ -1403,7 +1421,7 @@ def main() -> None:
           flush=True)
     model_rep = serving_model(N_ITEMS_MERGE, dev, seed=43)
     tab_rep = model_rep._params["item_table"]
-    tab_rep.copy_(tab_rep[: N_ITEMS_MERGE // REPEATS].repeat(REPEATS, 1))  # item i's row at i + j * 15,625
+    tab_rep.copy_(tab_rep[: N_ITEMS_MERGE // REPEATS].repeat(REPEATS, 1))  # item i's row at i + j * 10,000
     before = topk_streamed.rechecked_users
     t0 = time.perf_counter()
     ids_r, vals_r = model_rep.recommend_batch(hist_m, k=K, return_scores=True)
@@ -1440,6 +1458,9 @@ def main() -> None:
     check_lists("phase 5c", ids_c, hist_m, N_ITEMS_MERGE)
     check_against_reference("phase 5c", model_rep, hist_m, ids_c, vals_c, normal_lstm, torch)
     del model_rep, tab_rep, model_merge
+    # World size 1's lists, which phase 18c's mesh must serve again.
+    served = {"serve-10M": (histories, ids, vals), "serve-1M-merge": (hist_m, ids_m, vals_m),
+              "copies": (hist_m, ids_r, vals_r), "copies-merge": (hist_m, ids_c, vals_c)}
 
     def profiled(label, fn, top):
         """Run ``fn`` once under ``torch.profiler`` and print its wall time,
@@ -2241,7 +2262,7 @@ def main() -> None:
         print(f"phase {phase} {family}: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
 
     checkpoint_phases(dev, mark, zero_counters, read_counters, warp_kernels, eval_kernels)
-    mesh_phases(dev, mark, launches, launches_by_path)
+    mesh_phases(dev, mark, launches, launches_by_path, served)
 
     kernels = []
     sources = {
@@ -2502,7 +2523,7 @@ def checkpoint_phases(dev, mark, zero_counters, read_counters, warp_kernels, eva
         raise SmokeFailure(f"phase 17: the quickstart failed: {proc.stderr[-2000:]}")
 
 
-def mesh_phases(dev, mark, launches, launches_by_path):
+def mesh_phases(dev, mark, launches, launches_by_path, served):
     """Phases 18a and 18b: the mesh on the card. 18a: world size 1 through
     ``parallel.initialize`` (NCCL, a one-rank TCP rendezvous), a (1, 1) mesh
     fit-bench fit bit-equal to the mesh-less one. 18b: four ranks on the one
@@ -2560,7 +2581,7 @@ def mesh_phases(dev, mark, launches, launches_by_path):
             "cases": [{**fit_case, "name": name, "hyper": hyper.to_dict(),
                        "eval": [EVAL_USERS[0], N_ITEMS, 20, EVAL_SEEDS[EVAL_USERS[0]]],
                        "save": os.path.join(tmp, "ws4")},
-                      {**fit_case, "name": f"{name}-hinge", "hyper": hinge.to_dict()}],
+                      {**fit_case, "name": f"{name}-hinge", "hyper": hinge.to_dict()}] + serve_mesh_cases(served),
         }
         t0 = time.perf_counter()
         run = launch(MESH_SHAPE[0] * MESH_SHAPE[1], spec, os.path.join(tmp, "spec4.json"), MESH_TIMEOUT_S)
@@ -2573,8 +2594,8 @@ def mesh_phases(dev, mark, launches, launches_by_path):
             f"{got['steps']} steps); collectives on rank 0 during the fit: {col['calls']} calls, "
             f"{col['bytes'] / 1e6:.1f} MB, {col['seconds']:.3f} s of host ({col['seconds'] / got['steps'] * 1e3:.2f} "
             f"ms and {col['bytes'] / got['steps'] / 1e6:.2f} MB a step); replicas bit-equal: "
-            f"{got['replicas_equal']}; the ranks' run (this fit, its evaluation and save, and the Hinge fit) "
-            f"{t_run:.1f} s, sharded save {got['save_s']:.3f} s", flush=True,
+            f"{got['replicas_equal']}; the ranks' run (this fit, its evaluation and save, the Hinge fit and "
+            f"phase 18c's serving) {t_run:.1f} s, sharded save {got['save_s']:.3f} s", flush=True,
         )
         kernels = {"lstm_fwd": "K1", "lstm_bwd": "K2", "lstm_bwd_dwh": "dW_h", "gather_rows": "P1",
                    "scatter_add_rows": "P2", "cand_score_rows": "P4", "score_count_ge": "K5"}
@@ -2657,6 +2678,8 @@ def mesh_phases(dev, mark, launches, launches_by_path):
         check_ranks("phase 18b", copy, test, {"mesh (K5 per slab)": ranks_mesh}, ranks_ws1, torch,
                     against="world size 1 (K5 on the whole table)")
 
+        serve_mesh_phase(run, served, mark, launches, launches_by_path)
+
         # Two ranks, (1, 2): the row-sharded fit alone, bit-equal to world
         # size 1; then ckpt-10M-sharded loaded, each slab bit-equal to the
         # world-size-1 load.
@@ -2698,7 +2721,81 @@ def mesh_phases(dev, mark, launches, launches_by_path):
             print("phase 18b NCCL, one rank a card: skipped (one card)", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"phase 18b: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
+    print(f"phase 18b-18c: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
+
+
+# Phase 18c's cells: name -> (catalog, seed, table copies, batches timed
+# after a warm-up, routes: {route: (class constants set on the model, world
+# size 1's lists of the same model in ``served``)}).
+SERVE_MESH_CELLS = {
+    "serve-10M-mesh": (N_ITEMS, 42, None, 3, {"default": ({}, "serve-10M")}),
+    "serve-1M-merge-mesh": (N_ITEMS_MERGE, 42, None, 1, {"merge": ({"_MERGE_BUFFER_BYTES": 0}, "serve-1M-merge")}),
+    "copies-mesh": (N_ITEMS_MERGE, 43, REPEATS, 1,
+                    {"single": ({}, "copies"), "merge": ({"_MERGE_BUFFER_BYTES": 0}, "copies-merge")}),
+}
+MESH_SERVE_KERNELS = ("lstm_fwd", "score_submax_groupmax", "score_submax_groupmax_fp32", "score_groupmax",
+                      "score_groupmax_fp32")
+
+
+def serve_mesh_cases(served):
+    """Phase 18c's cases of the four ranks' spec: each cell's model built
+    on the mesh (the copies made on each slab), serving world size 1's
+    histories."""
+    cases = []
+    for name, (num_items, seed, copies, repeats, routes) in SERVE_MESH_CELLS.items():
+        histories = served[next(iter(routes.values()))[1]][0]
+        case = {"name": name, "family": "lstm", "hyper": serving_hyper(num_items, seed).to_dict(),
+                "mesh": list(MESH_SHAPE),
+                "recommend": {"histories": histories, "k": K, "repeats": repeats,
+                              "routes": {route: constants for route, (constants, _) in routes.items()}}}
+        if copies:
+            case["copies"] = copies
+        cases.append(case)
+    return cases
+
+
+def serve_mesh_phase(run, served, mark, launches, launches_by_path):
+    """Phase 18c: the four ranks' ``recommend_batch`` on the (2, 2) mesh,
+    each rank a slab (5,000,000 rows at 10M items, 500,000 at 1M): every
+    cell's lists against world size 1's (phases 4, 5, 5b, 5c: scores within
+    TOL_REL relative, ids except at ties), the four ranks' ids, scores and
+    ``predict`` scores bit-equal, the copies rechecked on every slab, and
+    the path's launches of K1, K4, K3 and both FP32 routes (rank 0's)."""
+    mark("phase 18c")
+    totals = {}
+    for name, (num_items, _, copies, repeats, routes) in SERVE_MESH_CELLS.items():
+        got = run["cases"][name]["recommend"]
+        if len(got["sha256"]) != MESH_SHAPE[0] * MESH_SHAPE[1] or len(set(got["sha256"])) != 1:
+            raise SmokeFailure(f"phase 18c {name}: the ranks serve other bits ({got['sha256']})")
+        for route, (_, key) in routes.items():
+            histories, want_ids, want_vals = served[key]
+            r = got["routes"][route]
+            ids = run["arrays"][f"{name}.{route}.ids"]
+            vals = run["arrays"][f"{name}.{route}.vals"]
+            check_lists(f"phase 18c {name} {route}", ids.tolist(), histories, num_items)
+            ties = check_same_lists(f"phase 18c {name} {route}", ids, vals, np.asarray(want_ids), want_vals)
+            col = r["collectives"]
+            print(f"phase 18c {name} {route} ({MESH_SHAPE[0]} x {MESH_SHAPE[1]} mesh, gloo, 4 ranks on one card, "
+                  f"{-(-num_items // MESH_SHAPE[1])}-row slabs, U={len(histories)}, k={K}): "
+                  f"{r['users_per_s']:.1f} users/s (median of {repeats}: "
+                  f"{', '.join(f'{t * 1e3:.1f}' for t in r['batch_s'])} ms a batch); rank 0's collectives a batch: "
+                  f"{col['calls']:g} calls, {col['bytes'] / 1e6:.2f} MB, {col['seconds'] * 1e3:.1f} ms of host; "
+                  f"rechecked in the last batch: {r['rechecked']} on rank 0, {r['rechecked_sum']} over the ranks; "
+                  f"the lists of world size 1 ({key}) with {ties} tied ranks; the four ranks bit-equal", flush=True)
+            if copies and r["rechecked"] != len(histories):
+                raise SmokeFailure(f"phase 18c {name} {route}: {r['rechecked']} users rechecked on rank 0, not all "
+                                   f"{len(histories)}: every slab's top-10 ties")
+        for k, count in got["launches"].items():
+            totals[k] = totals.get(k, 0) + count
+    path = "mesh-serve"
+    print(f"launches on the {path} path (phase 18c, rank 0 of 4): {totals}", flush=True)
+    for k, count in totals.items():
+        launches[k] += count
+        if count:
+            launches_by_path[k][path] = count
+    never = [k for k in MESH_SERVE_KERNELS if not totals[k]]
+    if never:
+        raise SmokeFailure(f"phase 18c: the mesh-serve path never launched {never}")
 
 
 def tower_sha256(model):
@@ -2746,6 +2843,23 @@ def check_lists(phase, ids, histories, n):
         if set(row) & set(h):
             raise SmokeFailure(f"{phase}: user {u} was recommended an item it has seen")
     print(f"  {phase}: {len(ids)} lists of {K} distinct unseen ids in [0, {n})", flush=True)
+
+
+def check_same_lists(phase, ids, vals, want_ids, want_vals):
+    """Lists ``[U, K]`` against another run's: scores within TOL_REL
+    relative, ids equal except where the other run's scores tie within it.
+    Returns the tied ranks."""
+    bound = TOL_REL * np.abs(want_vals) + 1e-12
+    if ids.shape != want_ids.shape or not np.all(np.abs(vals - want_vals) <= bound):
+        raise SmokeFailure(f"{phase}: scores differ (worst relative "
+                           f"{float(np.max(np.abs(vals - want_vals) / np.abs(want_vals))):.2e})")
+    gap = np.abs(np.diff(want_vals, axis=1)) <= TOL_REL * np.abs(want_vals[:, 1:])
+    tied = np.zeros(want_ids.shape, dtype=bool)
+    tied[:, :-1] |= gap
+    tied[:, 1:] |= gap
+    if ((ids != want_ids) & ~tied).any():
+        raise SmokeFailure(f"{phase}: ids differ at {int(((ids != want_ids) & ~tied).sum())} untied ranks")
+    return int(tied.sum())
 
 
 def check_ranks(phase, model, test, ranks, generic, torch, against="the per-user loop"):

@@ -48,8 +48,11 @@ axis and keeps the item table row-sharded over the ``model`` axis
 (:mod:`.engine`); representations, ``predict``, the parameter views and
 the evaluation read the whole table through sharded gathers, and every
 rank returns the same values. ``recommend_batch`` runs as on one device
-under a ``data``-only mesh; on a row-sharded table it raises
-``NotImplementedError`` (the sharded top-k, ROADMAP item 5b).
+under a ``data``-only mesh. On a row-sharded table each rank takes the
+exact top-k of its slab as a catalog of its own, by the route above that
+fits the slab (:func:`topk_slab`), and one all-gather over ``model``
+brings every slab's list to every rank, which merge them alike
+(:func:`merge_topk_parts`); the users are not split over ``data``.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ from ..ops.topk_kernels import (
     split_reps,
 )
 from ..ops.sampling import WARP_CANDIDATES
-from ..parallel.mesh import DATA_AXIS, make_mesh, world
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, world
 from ..parallel.sharding import batch_slice, gather_slabs, read_rows, slab_range
 from ..utils import checkpoint
 from ..utils.convert import params_from_numpy
@@ -589,6 +592,57 @@ def topk_streamed_bigseen(
     return vals, idx
 
 
+def _slab_seen(seen: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Global seen rows ``[U, S]`` as the slab ``[lo, hi)``'s own: an id
+    inside it becomes ``id - lo``; any other id, and the pad, ``hi - lo``
+    (one past the slab). Each row is sorted ascending again, as
+    :func:`_seen_rows` leaves it; the width ``S`` stays the global one."""
+    local = torch.where((seen >= lo) & (seen < hi), seen - lo, hi - lo)
+    return local.sort(dim=1).values
+
+
+def topk_slab(route, table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int, lo: int, num_items: int):
+    """The slab step of the sharded top-k: ``table`` holds rows ``[lo, lo +
+    n_loc)`` of a catalog of ``num_items``, ``seen [U, S]`` global ids (pad
+    ``num_items``). ``route(table, reps, seen, k)`` takes the exact top-k of
+    the slab as a catalog of its own (:meth:`ImplicitSequenceModel._catalog_topk`:
+    its budgets and certificate apply to the slab). Returns ``(vals [U, k],
+    ids [U, k])`` in global ids. Columns past the slab's own list (fewer than
+    ``k`` rows, or a route's id past the slab, which the routes score
+    ``-inf``) hold ``-inf`` and ids past the catalog, ``lo + num_items * (1
+    + column)``: distinct over slabs and columns, and never a real item."""
+    n_loc = table.shape[0]
+    vals, local = route(table, reps, _slab_seen(seen, lo, lo + n_loc), min(k, n_loc))
+    u = reps.shape[0]
+    pad = lo + num_items * (1 + torch.arange(k, device=table.device)).expand(u, k)
+    out_v = torch.full((u, k), float("-inf"), device=table.device)
+    out_v[:, : vals.shape[1]] = vals
+    ids = pad.clone()
+    ids[:, : local.shape[1]] = torch.where(local < n_loc, local + lo, pad[:, : local.shape[1]])
+    return out_v, ids
+
+
+def merge_topk_parts(parts, k: int, num_items: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-shard merge: each slab's ``(vals [U, k], ids [U, k])``
+    (:func:`topk_slab`), in the model axis's order, to the catalog's top
+    ``k``. Exact: an item of the global top-k has at most ``k - 1`` unseen
+    items above it in the whole catalog, so at most ``k - 1`` in its own
+    slab, and it is in its slab's list (the slab's own exact top-k); the
+    union holds the global top ``k``, and one selection over it finds them. Among equal values the
+    padding ids (``>= num_items``) come last, then the parts' order, so the
+    padding never displaces a real item (a slab's list may end in seen items
+    at ``-inf``) and every rank picks the same ids. As on one rank, ties
+    exactly at the k-th value may pick other ids than a dense sort; the
+    values are exact."""
+    vals = torch.cat([v for v, _ in parts], dim=1)
+    ids = torch.cat([i for _, i in parts], dim=1)
+    # Two stable sorts: by padding, then by value (descending).
+    order = torch.sort((ids >= num_items).to(torch.int32), dim=1, stable=True).indices
+    vals, ids = torch.gather(vals, 1, order), torch.gather(ids, 1, order)
+    top, p = torch.sort(vals, dim=1, descending=True, stable=True)
+    return top[:, :k], torch.gather(ids, 1, p[:, :k])
+
+
 def _interactions_fingerprint(interactions: CompressedInteractions) -> tuple:
     """A cheap content fingerprint of the arrays (the JAX package's): sums
     and an order-sensitive weighted hash catch in-place edits of the arrays
@@ -950,14 +1004,11 @@ class ImplicitSequenceModel:
         full-catalog scoring, seen-item exclusion (with ``exclude_seen``)
         and the top-k, all on the device. ``return_scores=True`` also
         returns the items' scores ``dot(user, emb) + bias`` as ``[U, k]``.
-        Raises ``NotImplementedError`` on a row-sharded table (the sharded
-        top-k is ROADMAP item 5b)."""
-        mesh = self.hyper._mesh
-        if mesh is not None and mesh.model > 1:
-            raise NotImplementedError(
-                "recommend_batch on a table row-sharded over the model axis is not ported yet "
-                "(ROADMAP item 5b: the sharded top-k)"
-            )
+        On a table row-sharded over the mesh's ``model`` axis every rank
+        serves the whole batch: the top-k of its slab, then one all-gather
+        of the slabs' lists over ``model`` and the same merge on every rank
+        (:func:`topk_slab`, :func:`merge_topk_parts`), so every rank returns
+        the same ids and scores."""
         if not len(histories):
             return ([], np.zeros((0, k), np.float32)) if return_scores else []
         flat, lens = _flatten(histories)
@@ -973,7 +1024,26 @@ class ImplicitSequenceModel:
         return (ids, vals.cpu().numpy()) if return_scores else ids
 
     def _topk(self, reps: torch.Tensor, seen: torch.Tensor, k: int):
+        """The exact top-``k`` of the whole catalog: the table's own route,
+        or on a row-sharded table the slab's, then the cross-shard merge.
+        The slab's list travels in one all-gather (values as their int32
+        bits beside the ids, in one int64 tensor)."""
         table = self._params["item_table"]
+        mesh = self.hyper._mesh
+        if mesh is None or mesh.model == 1:
+            return self._catalog_topk(table, reps, seen, k)
+        n = self.hyper._num_items
+        lo, _ = slab_range(mesh, n)
+        vals, ids = topk_slab(self._catalog_topk, table, reps, seen, k, lo, n)
+        packed = torch.cat([vals.view(torch.int32).to(torch.int64), ids], dim=1)
+        parts = [
+            (p[:, :k].to(torch.int32).view(torch.float32), p[:, k:]) for p in mesh.all_gather(packed, MODEL_AXIS)
+        ]
+        return merge_topk_parts(parts, k, n)
+
+    def _catalog_topk(self, table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int):
+        """The exact top-``k`` of ``table`` as a whole catalog (seen ids
+        past it never match), by the route its size and the seen width pick."""
         serve_chunk = self._SERVE_ITEM_CHUNK
         if table.shape[0] <= serve_chunk:
             return topk_small(table, reps, seen, k)

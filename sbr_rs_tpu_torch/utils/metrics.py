@@ -80,9 +80,12 @@ def trace(log_dir: str) -> Iterator[None]:
     profiler sessions; 6-8 of 79 after 90 s of back-to-back matmuls, also
     after 30 s of idle time; 18 after ``chip_smoke.main()``), erratically
     from run to run. Neither this synchronisation nor a warm-up step
-    (``schedule``), a 50 ms wait inside the profiler, ``TEARDOWN_CUPTI=0`` or
-    a sleep kernel at the region's start keeps them (the sleep kernel is
-    lost, and as many after it). A fresh process traces them all.
+    (``schedule``), a 50 ms wait inside the profiler, ``TEARDOWN_CUPTI=0``, a
+    sleep kernel at the region's start (the sleep kernel is lost, and as
+    many after it), nor kineto's larger CUPTI activity buffers (1 GiB, one
+    buffer per thread) keeps them, whether given as a ``KINETO_CONFIG``
+    file (73 of 79 kernels kept after 90 s of matmuls) or to the profiler
+    (77 of 79). A fresh process traces them all.
     ``scripts/torch_trace_probe.py`` checks it;
     ``scripts/torch_trace_probe.py --age`` reproduces it."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler

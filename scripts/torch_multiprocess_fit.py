@@ -31,17 +31,28 @@ rank 0 writes) and ``cases``, run in order, each with its own mesh:
   plain ones on the whole of a random table, bit for bit), ``sha256`` (the
   sha256 of each slab of the table, in the model axis's order, and of the
   tower's leaves), ``serve`` (the representations of a few histories and
-  the first one's ``predict`` scores over the catalog).
+  the first one's ``predict`` scores over the catalog), ``copies`` (``r``:
+  before anything else, make the table ``r`` copies of its first ``N / r``
+  rows, item ``i``'s row at ``i + j * N / r``, every rank its slab),
+  ``recommend`` (``{"histories": [...] or null for SERVE_HISTORIES, "k",
+  "repeats", "routes": {route: {class constant: value}}}``: for each route,
+  the constants set on the model, ``recommend_batch(return_scores=True)``
+  once to warm up when ``repeats > 1``, then ``repeats`` timed batches).
 
-Rank 0 writes ``<name>.epoch_losses``, ``<name>.ranks``, ``<name>.reps``
-and ``<name>.scores`` and, with ``gather``, ``<name>.params.<path>`` to
-``out``, and prints one JSON line per run: each case's mesh, losses, MRR,
+Rank 0 writes ``<name>.epoch_losses``, ``<name>.ranks``, ``<name>.reps``,
+``<name>.scores``, ``<name>.<route>.ids`` and ``<name>.<route>.vals`` and,
+with ``gather``, ``<name>.params.<path>`` to ``out``, and prints one JSON
+line per run: each case's mesh, losses, MRR,
 fit seconds and examples/s, the card memory the build or load peaked at,
 the checkpoint's hash, the host seconds, calls and bytes of the
 collectives during the fit, the kernels' launches during the fit and the
 evaluation, whether the replicas along the data axis (and the tower on
-every rank) are bit-equal, and the results of ``clone`` and
-``check_rows``.
+every rank) are bit-equal, the results of ``clone`` and ``check_rows``,
+and for ``recommend`` each route's users/s (the median batch), rank 0's
+collectives a batch, the users the certificate rechecked in the last
+batch (rank 0's and the sum over the ranks), the kernels' launches over
+all the routes' batches, and each rank's sha256 of every route's last ids
+and scores and of ``predict``'s scores of the first history.
 """
 
 from __future__ import annotations
@@ -140,8 +151,69 @@ def _counters():
         "lstm_fwd": lk.lstm_fwd, "lstm_bwd": lk.lstm_bwd, "lstm_bwd_dwh": lk.lstm_bwd_dwh,
         "gather_rows": rowk.gather_rows, "scatter_add_rows": rowk.scatter_add_rows_,
         "cand_score_smem": rowk.cand_score_smem, "cand_score_rows": rowk.cand_score_rows,
-        "score_count_ge": tk.score_count_ge,
+        "score_count_ge": tk.score_count_ge, "score_groupmax": tk.score_groupmax,
+        "score_groupmax_fp32": tk.score_groupmax_fp32, "score_submax_groupmax": tk.score_submax_groupmax,
+        "score_submax_groupmax_fp32": tk.score_submax_groupmax_fp32,
     }
+
+
+def _copies(model, r: int) -> None:
+    """Make the model's table ``r`` copies of its first ``N / r`` rows, in
+    place: each rank its slab, cut from the whole table."""
+    import torch
+
+    from sbr_rs_tpu_torch.parallel.sharding import slab_range
+
+    n = model.hyper._num_items
+    lo, hi = slab_range(model.hyper._mesh, n)
+    whole = model._full_table()
+    rows = torch.arange(lo, hi, device=whole.device) % (n // r)
+    model._params["item_table"].copy_(whole.index_select(0, rows))
+
+
+def _recommend(model, mesh, spec, name, out, device) -> dict:
+    """The ``recommend`` flag: each route's batches, timed; see the module
+    docstring."""
+    import torch
+
+    from sbr_rs_tpu_torch.models.base import topk_streamed
+
+    histories = spec.get("histories") or SERVE_HISTORIES
+    k, repeats = spec.get("k", 5), spec.get("repeats", 1)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    result, digests = {"routes": {}}, []
+    for route, constants in spec["routes"].items():
+        for key, value in constants.items():
+            setattr(model, key, value)
+        if repeats > 1:
+            model.recommend_batch(histories, k=k, return_scores=True)
+        times, before = [], dict(mesh.stats)
+        for _ in range(repeats):
+            checked = topk_streamed.rechecked_users
+            t0 = time.perf_counter()
+            ids, vals = model.recommend_batch(histories, k=k, return_scores=True)
+            times.append(time.perf_counter() - t0)
+        rechecked = topk_streamed.rechecked_users - checked
+        total = torch.tensor([rechecked], dtype=torch.int64, device=device)
+        ids = np.asarray(ids, dtype=np.int64)
+        result["routes"][route] = {
+            "users_per_s": len(histories) / float(np.median(times)), "batch_s": times,
+            "collectives": {key: (mesh.stats[key] - before[key]) / repeats for key in before},
+            "rechecked": rechecked, "rechecked_sum": int(mesh.all_reduce(total, None)),
+        }
+        out[f"{name}.{route}.ids"], out[f"{name}.{route}.vals"] = ids, vals
+        digests += [torch.from_numpy(ids), torch.from_numpy(np.ascontiguousarray(vals))]
+        for key in constants:
+            delattr(model, key)
+    result["launches"] = {key: fn.launches for key, fn in counters.items()}
+    predict = model.predict(model.user_representations(histories[:1])[0])
+    out[f"{name}.predict"] = predict
+    digests.append(torch.from_numpy(predict))
+    parts = mesh.all_gather(_digest(digests, device), None)
+    result["sha256"] = [bytes(p.cpu().numpy().astype(np.uint8).tolist()).hex() for p in parts]
+    return result
 
 
 def run_case(case, inputs, spec, out):
@@ -165,6 +237,8 @@ def run_case(case, inputs, spec, out):
         model = family.Hyperparameters.from_dict(case["hyper"]).mesh(mesh).build(device)
     if device.type == "cuda":
         result["build_peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if case.get("copies"):
+        _copies(model, case["copies"])
     if case.get("init"):
         prefix = f"{name}.init."
         keys = sorted(k for k in inputs.files if k.startswith(prefix))
@@ -227,6 +301,8 @@ def run_case(case, inputs, spec, out):
         reps = model.user_representations(SERVE_HISTORIES)
         out[f"{name}.reps"] = np.stack([r.user_embedding for r in reps])
         out[f"{name}.scores"] = model.predict(reps[0])
+    if case.get("recommend"):
+        result["recommend"] = _recommend(model, mesh, case["recommend"], name, out, device)
     if case.get("check_rows"):
         result["rows_bit_equal"] = _check_rows(mesh, model, device)
     if case.get("save"):

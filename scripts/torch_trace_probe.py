@@ -23,14 +23,18 @@ keeps ``trace`` from losing a region's first kernels again.
 region fresh, after 300 short profiler sessions (5 matmuls each), and after
 BUSY_SECONDS (default 90) of back-to-back 4096 x 4096 matmuls without the
 profiler; at that point it also traces the region under torch's profiler
-set up three other ways: a warm-up step through a ``schedule``, a 50 ms
-wait inside the profiler before the region, and a 5 ms sleep kernel
-launched inside the profiler before the region. Three more processes repeat
-the fresh and the busy traces: with ``TEARDOWN_CUPTI=0``; with 30 s of idle
-time between the busy period and the trace; with 12 short profiler sessions
-of 10 small kernels each between them (each session's kernels counted
-through ``prof.events()``). The last line is one JSON object of all of
-them; it reports and checks nothing.
+set up four other ways: a warm-up step through a ``schedule``, a 50 ms
+wait inside the profiler before the region, a 5 ms sleep kernel launched
+inside the profiler before the region, and the kineto settings
+``KINETO_SETTINGS`` (larger CUPTI activity buffers) given to the profiler
+(``custom_profiler_config``). Four more processes repeat the fresh and the
+busy traces: with ``TEARDOWN_CUPTI=0``; with 30 s of idle time between the
+busy period and the trace; with 12 short profiler sessions of 10 small
+kernels each between them (each session's kernels counted through
+``prof.events()``); with a ``KINETO_CONFIG`` file of ``KINETO_SETTINGS``,
+which kineto reads when the process first profiles. The first process also
+prints the kineto settings its torch libraries name. The last line is one JSON object
+of all of them; it reports and checks nothing.
 """
 
 from __future__ import annotations
@@ -54,7 +58,12 @@ SESSIONS = 300
 # ``--age``: the processes after the first, their environment, and what
 # runs between the busy period and the trace.
 AFTERMATHS = {"TEARDOWN_CUPTI=0": ({"TEARDOWN_CUPTI": "0"}, None), "idle 30 s": ({}, "idle"),
-              "12 short sessions": ({}, "sessions")}
+              "12 short sessions": ({}, "sessions"), "KINETO_CONFIG": ({"KINETO_CONFIG": None}, None)}
+# The kineto settings tried (``--age``): CUPTI activity buffers of up to
+# 1 GiB in all (kineto's default is 128 MB) and a buffer per thread. The
+# first line is empty: torch prefixes ``custom_profiler_config`` with
+# ``CUSTOM_CONFIG=``, which would swallow a setting on that line.
+KINETO_SETTINGS = "\nACTIVITIES_MAX_GPU_BUFFER_SIZE_MB=1024\nCUPTI_PER_THREAD_BUFFER_ENABLED=true\n"
 
 
 def serving():
@@ -83,6 +92,8 @@ def _profiled(log_dir, how):
         return
     torch.cuda.synchronize()
     kw = {"schedule": schedule(wait=0, warmup=1, active=1, repeat=1)} if how == "warm-up step" else {}
+    if how == "kineto settings":
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(custom_profiler_config=KINETO_SETTINGS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  on_trace_ready=tensorboard_trace_handler(log_dir), **kw) as prof:
         if how == "warm-up step":
@@ -180,7 +191,8 @@ def age(busy_s: float, aftermath=None) -> list:
         recorded = [_short_session(10) for _ in range(12)]
         print(f"short sessions: kernels recorded of 10 each: {recorded}", flush=True)
         label += ", then 12 short sessions"
-    hows = ["trace", "warm-up step", "50 ms wait", "5 ms sleep kernel", "trace"] if first else ["trace"]
+    hows = ["trace", "warm-up step", "50 ms wait", "5 ms sleep kernel", "kineto settings", "trace"] if first \
+        else ["trace"]
     return out + [probe(label, state, how) for how in hows]
 
 
@@ -197,6 +209,22 @@ def _in_fresh_process(call, env=None, timeout=600):
     return lines[:-1], json.loads(lines[-1])
 
 
+def kineto_keys():
+    """The kineto settings (``ACTIVITIES_*`` and ``CUPTI_*`` keys of a
+    config) that torch's libraries name, read from their bytes."""
+    import re
+
+    import torch
+
+    lib = os.path.join(os.path.dirname(torch.__file__), "lib")
+    keys = set()
+    for name in os.listdir(lib):
+        if name.startswith("libtorch") and name.endswith(".so"):
+            with open(os.path.join(lib, name), "rb") as f:
+                keys |= set(re.findall(rb"\x00((?:ACTIVITIES|CUPTI)_[A-Z0-9_]{3,60})\x00", f.read()))
+    return sorted(k.decode() for k in keys)
+
+
 def main() -> None:
     import torch
 
@@ -204,8 +232,13 @@ def main() -> None:
         sys.exit("torch_trace_probe: no CUDA device")
     if sys.argv[1:2] == ["--age"]:
         busy_s = float(sys.argv[2]) if len(sys.argv) > 2 else 90.0
+        print(f"kineto settings named by this torch: {kineto_keys()}", flush=True)
         results = {"default": age(busy_s)}
+        config = os.path.join(tempfile.mkdtemp(prefix="sbr_kineto_"), "kineto.conf")
+        with open(config, "w") as f:
+            f.write(KINETO_SETTINGS)
         for name, (env, aftermath) in AFTERMATHS.items():
+            env = {k: config if v is None else v for k, v in env.items()}
             lines, results[name] = _in_fresh_process(f"age({busy_s}, {aftermath or 'plain'!r})", env, 900)
             for line in lines:
                 print(f"{name}: {line}", flush=True)

@@ -1,7 +1,7 @@
 """The port's parallel layer (``sbr_rs_tpu_torch.parallel``) on the CPU,
 against the port itself: the mesh's rules, the sharding rules, and sharded
-fits and evaluations in several gloo processes against the one-rank fit on
-the same draws.
+fits, evaluations and serving in several gloo processes against the
+one-rank model on the same draws or parameters.
 
 Every rank draws from the same seeded generators, so a sharded fit sees the
 one-rank fit's permutations and candidates (and attention's dropout masks,
@@ -10,7 +10,11 @@ drawn at the whole batch's shape and sliced). The sums associate otherwise
 epoch losses are held to rtol 1e-4 and the parameters to rtol 2e-4 / atol
 1e-3, the tolerances of ``tests/test_torch_fit.py``; the replicas along the
 data axis must be equal bit for bit, and a world-size-1 mesh changes no
-bit. The ranks run ``scripts/torch_multiprocess_fit.py`` in subprocesses
+bit. Every fitted model then serves on every route of ``recommend_batch``
+(under a model axis each slab's top-k and the cross-shard merge), as does a
+catalog the model axis splits unevenly: the lists of the one-rank model on
+the gathered parameters (scores 1e-5 relative, ids except at ties), every
+rank's bits alike. The ranks run ``scripts/torch_multiprocess_fit.py`` in subprocesses
 (they import no jax), one group per world size, each group killed and
 failed after 120 s.
 """
@@ -41,9 +45,9 @@ GROUP_TIMEOUT_S = 120
 FAMILIES = {"lstm": lstm, "ewma": ewma, "gru": gru, "attention": attention}
 
 
-def _hyper(family, loss, kind, packed, sparse, dropout=0.0):
+def _hyper(family, loss, kind, packed, sparse, dropout=0.0, num_items=NUM_ITEMS):
     hp = (
-        FAMILIES[family].Hyperparameters(NUM_ITEMS, 8)
+        FAMILIES[family].Hyperparameters(num_items, 8)
         .embedding_dim(8)
         .learning_rate(0.05)
         .l2_penalty(1e-3)
@@ -76,6 +80,21 @@ CASES = [
 EXTRA = {  # per world: a case of clone checks and one of sharded row checks
     4: [("clone-d2m2", (2, 2), {"clone": True, "check_rows": True})],
 }
+# recommend_batch's routes on the ranks' slabs (32 rows; 31 and 30 for the
+# ragged catalog), as class constants set on the model: the dense top-k,
+# the single pass with subgroups of 8 in groups of 16, the group-only single
+# pass, the running merge over chunks of 8 rows, and the wide-seen route
+# (SERVE_HISTORIES' widest seen list has 9 ids).
+ROUTES = {
+    "small": {},
+    "submax": {"_SERVE_ITEM_CHUNK": 16, "_SUBGROUP_TARGET": 8},
+    "group_only": {"_SERVE_ITEM_CHUNK": 16},
+    "merge": {"_SERVE_ITEM_CHUNK": 8, "_MERGE_BUFFER_BYTES": 0},
+    "wide_seen": {"_SERVE_ITEM_CHUNK": 16, "_SERVE_MAX_POSTFILTER_SEEN": 2},
+}
+RECOMMEND = {"k": 5, "routes": ROUTES}
+# A catalog the model axis splits unevenly, served on a (2, 2) mesh.
+RAGGED = ("serve-ragged-d2m2", 4, (2, 2), _hyper("lstm", Loss.HINGE, Optimizer.ADAGRAD, False, True, num_items=61))
 
 
 @pytest.fixture(scope="module")
@@ -87,13 +106,17 @@ def groups(tmp_path_factory):
         cases = [
             {"name": name, "family": hp.to_dict()["model_type"], "hyper": hp.to_dict(), "mesh": list(mesh),
              "data": DATA, "fit": True, "eval": True, "gather": True, "serve": True,
-             "save": str(tmp / name)}
+             "save": str(tmp / name), "recommend": RECOMMEND}
             for name, w, mesh, hp in CASES if w == world
         ]
         base = _hyper("lstm", Loss.WARP, Optimizer.ADAGRAD, True, True).to_dict()
         for name, mesh, flags in EXTRA.get(world, []):
             cases.append({"name": name, "family": "lstm", "hyper": base, "mesh": list(mesh), "data": DATA,
                           "fit": True, **flags})
+        name, w, mesh, hp = RAGGED
+        if w == world:
+            cases.append({"name": name, "family": "lstm", "hyper": hp.to_dict(), "mesh": list(mesh),
+                          "gather": True, "recommend": RECOMMEND})
         spec = {"backend": "gloo", "device": "cpu", "timeout_s": 60, "inputs": None,
                 "out": str(tmp / "out.npz"), "cases": cases}
         out[world] = launch(world, spec, str(tmp / "spec.json"), GROUP_TIMEOUT_S)
@@ -354,11 +377,46 @@ def test_a_corrupted_checkpoint_raises_on_every_rank(tmp_path):
     assert failed.startswith("ranks failed") and failed.count("mismatch") >= 2, failed
 
 
-def test_recommend_on_a_row_sharded_table_raises():
-    class Sharded:
-        data, model, d, m, size = 1, 2, 0, 0, 2
+SERVED = CASES + [RAGGED]
 
-    model = _hyper("lstm", Loss.HINGE, Optimizer.ADAGRAD, False, True).build("cpu")
-    model.hyper._mesh = Sharded()
-    with pytest.raises(NotImplementedError, match="5b"):
-        model.recommend_batch([[1, 2]], k=3)
+
+@pytest.mark.parametrize("name, world, mesh, hp", SERVED, ids=[c[0] for c in SERVED])
+def test_sharded_recommend_matches_one_rank(groups, name, world, mesh, hp):
+    """``recommend_batch`` on every route (under a model axis: each slab's
+    top-k and the cross-shard merge) gives the one-rank model's lists on
+    the gathered parameters, run on one thread as the ranks run: scores
+    within 1e-5 relative, ids equal except where the scores tie within it."""
+    arrays = groups[world]["arrays"]
+    model = _loaded(hp, arrays, name)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for route, constants in ROUTES.items():
+            for key, value in constants.items():
+                setattr(model, key, value)
+            ids, vals = model.recommend_batch(SERVE_HISTORIES, k=RECOMMEND["k"], return_scores=True)
+            for key in constants:
+                delattr(model, key)
+            got_ids, got_vals = arrays[f"{name}.{route}.ids"], arrays[f"{name}.{route}.vals"]
+            np.testing.assert_allclose(got_vals, vals, rtol=1e-5, atol=0, err_msg=route)
+            gaps = np.abs(np.diff(vals, axis=1)) <= 1e-5 * np.abs(vals[:, 1:])
+            tied = np.zeros(vals.shape, bool)
+            tied[:, :-1] |= gaps
+            tied[:, 1:] |= gaps
+            np.testing.assert_array_equal(got_ids[~tied], np.asarray(ids)[~tied], err_msg=route)
+            for h, row in zip(SERVE_HISTORIES, got_ids.tolist()):
+                assert len(set(row)) == len(row) and not set(row) & set(h), route
+        np.testing.assert_array_equal(arrays[f"{name}.predict"], model.predict(model.user_representation(
+            SERVE_HISTORIES[0])))
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("name, world, mesh, hp", SERVED, ids=[c[0] for c in SERVED])
+def test_every_rank_serves_the_same_bits(groups, name, world, mesh, hp):
+    """Every rank's ids and scores on every route, and its ``predict``
+    scores, hash alike (the ranks of a model group merge the same gathered
+    lists; the data replicas hold the same slabs)."""
+    got = groups[world]["cases"][name]["recommend"]
+    assert len(got["sha256"]) == world and len(set(got["sha256"])) == 1, got["sha256"]
+    assert set(got["routes"]) == set(ROUTES)

@@ -14,6 +14,13 @@ BPR (with Adam, as ``tests/test_torch_family_fit.py`` pairs them), Adagrad
 and Adam, the row-sharded sparse step (``model = 2``) and a data-only dense
 step.
 
+Serving on the row-sharded table: the trained JAX LSTM serves
+``SERVE_HISTORIES`` on its ``(2, 2)`` mesh through its ``shard_map``
+composition of the Pallas kernel (interpret mode, catalog chunks of 8, as
+``tests/test_sharding.py`` runs it), and four port ranks serve them from
+the same weights (each slab's top-k, then the cross-shard merge): the
+lists are equal and the scores agree to 1e-5.
+
 Checkpoints across world sizes: the 4-rank port saves (rank 0 writes, the
 slabs streamed to it); the JAX package and the port at world size 1 load it
 with the gathered table bit for bit; 2 ranks load it and save again to the
@@ -37,6 +44,7 @@ from sbr_rs_tpu.models import attention as jax_attention
 from sbr_rs_tpu.models import ewma as jax_ewma
 from sbr_rs_tpu.models import gru as jax_gru
 from sbr_rs_tpu.models import lstm as jax_lstm
+from sbr_rs_tpu.models.base import ImplicitSequenceModel as JaxModel
 from sbr_rs_tpu.parallel import make_mesh as jax_make_mesh
 from sbr_rs_tpu.utils import checkpoint as jax_checkpoint
 from sbr_rs_tpu_torch import datasets
@@ -45,7 +53,7 @@ from sbr_rs_tpu_torch.utils import checkpoint
 from sbr_rs_tpu_torch.utils.tree import flatten
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from scripts.torch_multiprocess_fit import launch  # noqa: E402
+from scripts.torch_multiprocess_fit import SERVE_HISTORIES, launch  # noqa: E402
 
 RTOL, ATOL = 2e-4, 1e-3
 NUM_ITEMS = 64
@@ -62,7 +70,8 @@ CASES = [
     ("gru-bpr-adam", "gru", Loss.BPR, Optimizer.ADAM, False, True, (2, 2)),
     ("attention-warp-adam", "attention", Loss.WARP, Optimizer.ADAM, True, True, (2, 2)),
 ]
-SAVED = CASES[0][0]  # the case whose trained model the 4 ranks save
+SAVED = CASES[0][0]  # the case whose trained model the 4 ranks save, and serve
+SERVE_K, SERVE_CHUNK = 5, 8
 
 
 def _jax_hyper(family, loss, kind, packed, sparse, mesh=None):
@@ -113,6 +122,21 @@ def _jax_draws(jm, port_hyper, data_size):
     return perm.astype(np.int64), cand.astype(np.int64)
 
 
+def _jax_sharded_serving(jm):
+    """``recommend_batch`` of a JAX model on its ``(2, 2)`` mesh through
+    the ``shard_map`` composition of the Pallas kernel, in interpret mode."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxModel, "_SERVE_ITEM_CHUNK", SERVE_CHUNK)
+        mp.setenv("SBR_PALLAS_TOPK", "1")
+        mp.setenv("SBR_PALLAS_INTERPRET", "1")
+        JaxModel._TOPK_FN_CACHE.clear()
+        try:
+            ids, vals = jm.recommend_batch(SERVE_HISTORIES, k=SERVE_K, return_scores=True)
+        finally:
+            JaxModel._TOPK_FN_CACHE.clear()
+    return np.asarray(ids), np.asarray(vals)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX fits, then one group of 4 port ranks over every case (and a
@@ -127,6 +151,13 @@ def runs(tmp_path_factory):
             inputs[f"{name}.init.{path}"] = v
         inputs[f"{name}.perm"], inputs[f"{name}.cand"] = _jax_draws(jm, port_hyper, DATA)
         jm.fit(jmat)
+        if name == SAVED:
+            want["serve"] = _jax_sharded_serving(jm)
+            for path, v in flatten(_numpy(jm._params)):
+                inputs[f"serve.init.{path}"] = v
+            cases.append({"name": "serve", "family": family, "hyper": port_hyper.to_dict(), "mesh": list(mesh),
+                          "init": True, "recommend": {"k": SERVE_K,
+                                                      "routes": {"chunk": {"_SERVE_ITEM_CHUNK": SERVE_CHUNK}}}})
         want[name] = {
             "epoch_losses": np.asarray(jm.history.epoch_losses),
             "params": _numpy(jm._params),
@@ -194,3 +225,13 @@ def test_sharded_checkpoint_loads_at_world_size_two(runs):
 def test_jax_checkpoint_loads_at_world_size_four(runs):
     _assert_params(runs["got4"]["arrays"], "jax-checkpoint.params", runs["want"]["jax-checkpoint"]["params"],
                    rtol=0, atol=0)
+
+
+def test_sharded_serving_matches_jax(runs):
+    """The port's (2, 2) ranks serve the JAX (2, 2) mesh's lists, scores to
+    1e-5, on every rank alike."""
+    want_ids, want_vals = runs["want"]["serve"]
+    arrays = runs["got4"]["arrays"]
+    np.testing.assert_array_equal(arrays["serve.chunk.ids"], want_ids)
+    np.testing.assert_allclose(arrays["serve.chunk.vals"], want_vals, rtol=1e-5, atol=0)
+    assert len(set(runs["got4"]["cases"]["serve"]["recommend"]["sha256"])) == 1
