@@ -49,7 +49,12 @@ attention families, one phase per printed line:
    in users/s, with the users the certificate sent back to the FP32 K4,
    checked against a plain full-catalog reference on 256 users, and one
    batch served with the caller's ``allow_tf32`` True (the same ids, the
-   flag left True);
+   flag left True); then on each side of the serving budgets: the card's,
+   derived from its free memory at each call (the default), and the JAX
+   package's constants fixed on the model, each side's budgets, route and
+   users/s, the two sides' lists alike; a third side, the card's budgets
+   with phase 2's fixed at its constant (the route is the same on all
+   three), and the host time of one reading of the card's memory;
 5. the running-merge path (1,000,000 items, 512 users, merge budget 0), which
    launches the 3xTF32 K3 chunk by chunk and certifies each user, checked
    the same way, with the users sent to the FP32 K3;
@@ -60,10 +65,19 @@ attention families, one phase per printed line:
 5c. the same catalog through the running merge (merge budget 0): every user
    goes to the FP32 K3; checked the same way;
 5d. serve-50M-merge: the serving model at 50,000,000 items (a 25.6 GB f32
-   table), 4096 users, default budgets, so the running merge runs on its
-   own (382 chunk calls of K3 a batch), in users/s, one profiled batch,
-   checked against the plain reference (a running top-11 per catalog chunk)
-   on 256 users; the 10M model is freed first and built again after;
+   table), 4096 users, on each side of the budgets: the card's take the
+   single pass (K4; the card's free memory printed before and after
+   ``empty_cache`` and after the build), the constants the running merge
+   (382 chunk calls of K3 a batch); users/s, one profiled batch and the
+   launches of each side, the two sides' lists alike, checked against the
+   plain reference (a running top-11 per catalog chunk) on 256 users; the
+   10M model is freed first and built again after 5e;
+5e. serve-20M-bf16, ``benches/serving.py``'s ``items20m_bf16``: the same
+   model at 20,000,000 items with a bf16 table (5.12 GB), 4096 users, on
+   each side of the budgets as in 5d (K4 on both, one profiled batch
+   each), checked the same way;
+   then one JSON line ``{"serving_budgets": ...}``: each cell's budgets,
+   route and users/s on each side;
 6. one more 10M batch under ``torch.profiler`` (after the timed runs): the
    device's busy time, its idle share and the kernels that took the time;
 6b. ``evaluation.mrr_score`` on the same 10M-item model for 512 and 4096
@@ -181,10 +195,13 @@ attention families, one phase per printed line:
    budget 0: K3 on each 500,000-row slab) and phase 5b's catalog of copies
    (the single pass and the merge: every user rechecked on every slab,
    through both FP32 routes); each against world size 1's lists of phases
-   4-5c (scores within TOL_REL relative, ids except at ties), the four
+   4-5c (scores within TOL_REL relative, ids except at ties; serve-10M-mesh
+   also with phase 2's budget fixed at its constant), the four
    ranks' ids, scores and ``predict`` scores bit-equal (sha256), with rank
-   0's collectives a batch, the users rechecked (rank 0's and the sum) and
-   the path's launches of K1, K4, K3 and both FP32 routes (rank 0's).
+   0's collectives a batch, the users rechecked (rank 0's and the sum),
+   rank 0's serving budgets and route (each rank budgets its share of the
+   card the four share) and the path's launches of K1, K4, K3 and both FP32
+   routes (rank 0's).
 
 It then prints the kernels' JSON line (each kernel's launches on the main
 paths, in all and by path, largest error, card and plain times, its bound on this card, by the
@@ -209,6 +226,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -340,22 +358,128 @@ class SmokeFailure(Exception):
 # the first checkout on sys.path.
 
 
-def serving_hyper(num_items, seed=42):
+def serving_hyper(num_items, seed=42, dtype="float32"):
     """serve-10M's hyperparameters (phase 4) over ``num_items`` items:
-    LSTM-127 Normal, T=32, an f32 table, weights from ``seed``."""
+    LSTM-127 Normal, T=32, a ``dtype`` table (f32; bf16 for serve-20M-bf16),
+    weights from ``seed``."""
     from sbr_rs_tpu_torch.models import lstm
 
     return (
         lstm.Hyperparameters(num_items, SEQ_LEN)
         .embedding_dim(DIM)
         .lstm_variant(lstm.LSTMVariant.NORMAL)
+        .table_dtype(dtype)
         .from_seed(seed)
     )
 
 
-def serving_model(num_items, dev, seed=42):
+def serving_model(num_items, dev, seed=42, dtype="float32"):
     """serve-10M's model (phase 4) over ``num_items`` items (:func:`serving_hyper`)."""
-    return serving_hyper(num_items, seed).build(dev)
+    return serving_hyper(num_items, seed, dtype).build(dev)
+
+
+# The JAX package's serving budgets, sized for a 16 GB chip (the port's
+# floors, models/base.py's MERGE_BUFFER_FLOOR, SUBMAX_BUFFER_FLOOR and
+# PHASE2_BUFFER_FLOOR; main() checks that they agree), as class constants to
+# fix on a model: the other side of the card's own budgets.
+CONSTANT_BUDGETS = {"_MERGE_BUFFER_BYTES": 6 << 30, "_SUBMAX_BUFFER_BYTES": 6 << 30,
+                    "_PHASE2_BUFFER_BYTES": 1_200_000_000}
+
+
+def stack_bytes(route, n, u):
+    """The maxima stacks a streamed top-k's ``route`` allocates for ``u``
+    users over ``n`` rows, as the kernel sizes them: the group maxima on the
+    single pass, and the subgroup maxima beside them when it refines."""
+    from sbr_rs_tpu_torch.ops.topk_kernels import groupmax_rows
+
+    if not route.single_pass:
+        return 0
+    subs = groupmax_rows(n, route.sub) if route.sub < route.group else 0
+    return (groupmax_rows(n, route.group) + subs) * u * 4
+
+
+def describe_route(route, n, kk):
+    """A streamed top-k's route in words."""
+    if route.single_pass:
+        how = f"single pass, group {route.group}, " + (
+            f"subgroups of {route.sub}" if route.sub < route.group else "group maxima only")
+    else:
+        how = f"running merge over {-(-n // SERVE_CHUNK)} chunks, group {route.group}"
+    return f"{how}, phase 2 {route.slots} of {kk} slots a step"
+
+
+def card_memory(label, dev):
+    """Print what the serving budgets read of the card ``dev``: its free and
+    total bytes, this process's releasable cache beside the allocator's
+    reserved and allocated bytes, and a batch's share of it all."""
+    import torch
+    from sbr_rs_tpu_torch.models import base
+
+    reading = base.card_reading(dev)
+    _, free, cached, total = reading
+    print(f"{label}: the card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free (mem_get_info); this process's "
+          f"allocator holds {cached / 1e9:.2f} GB it could release (reserved {torch.cuda.memory_reserved(dev) / 1e9:.2f}"
+          f", allocated {torch.cuda.memory_allocated(dev) / 1e9:.2f}); a batch's share "
+          f"{base.budget_share([reading]) / 1e9:.2f} GB", flush=True)
+
+
+def serve_side(label, model, histories, side, constants, after=None):
+    """One side of the serving budgets: ``recommend_batch(k=K)`` of
+    ``histories`` with ``constants`` set on the model (none: the budgets the
+    card derives at each call), a warm-up batch, then 3 timed. Prints and
+    returns the budgets and route of the last batch's streamed top-k
+    (``topk_streamed.last_route``), users/s (the median), the users the
+    certificate rechecked a batch, the last batch's peak allocation beside
+    its maxima stacks, and its lists; ``after(result)`` runs while the
+    constants are still set."""
+    import torch
+
+    from sbr_rs_tpu_torch.models.base import BUDGET_MARGIN, topk_streamed
+
+    for name, value in constants.items():
+        setattr(model, name, value)
+    try:
+        model.recommend_batch(histories, k=K)
+        before = topk_streamed.rechecked_users
+        times = []
+        for _ in range(3):
+            topk_streamed.last_route = None
+            torch.cuda.reset_peak_memory_stats(model.device)
+            held = torch.cuda.memory_allocated(model.device)
+            t0 = time.perf_counter()
+            ids, vals = model.recommend_batch(histories, k=K, return_scores=True)
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(model.device) - held
+        route, budgets = topk_streamed.last_route
+        n, u = model.hyper._num_items, len(histories)
+        stacks = stack_bytes(route, n, u)
+        margin = BUDGET_MARGIN * torch.cuda.get_device_properties(model.device).total_memory
+        kk = min(K + max(len(h) for h in histories), n)
+        ups = u / statistics.median(times)
+        print(f"{label}, {SIDE_NAMES[side]}: merge {budgets[0] / 1e9:.2f} GB, submax {budgets[1] / 1e9:.2f} GB, "
+              f"phase 2 {budgets[2] / 1e9:.2f} GB; {describe_route(route, n, kk)}; {ups:.1f} users/s (median of 3: "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per batch of {u}); the certificate sent "
+              f"{(topk_streamed.rechecked_users - before) / 3:g} of {u} users a batch to the FP32 route; the last "
+              f"batch's peak allocation {peak / 1e9:.3f} GB: its maxima stacks {stacks / 1e9:.3f} GB and "
+              f"{(peak - stacks) / 1e9:.3f} GB more, against the margin's {margin / 1e9:.2f} GB", flush=True)
+        if not constants and peak > budgets[0]:
+            raise SmokeFailure(f"{label}: the batch took {peak} bytes, more than the share {budgets[0]} it was given")
+        got = {"budgets_bytes": list(budgets), "route": route._asdict(), "users_per_s": ups,
+               "batch_ms": [t * 1e3 for t in times], "peak_bytes": peak, "stack_bytes": stacks,
+               "ids": np.asarray(ids), "vals": vals}
+        if after is not None:
+            after(got)
+    finally:
+        for name in constants:
+            delattr(model, name)
+    return got
+
+
+# The sides of the serving budgets: the card's, the JAX package's constants,
+# and (serve-10M, whose route is the same on both sides) the card's with phase
+# 2's budget fixed at its constant, to part phase 2's step from the reading.
+SIDE_NAMES = {"card": "the card's budgets", "constants": "the JAX package's constants",
+              "phase2": "the card's budgets, phase 2's at its constant"}
 
 
 def serving_histories(num_items, users=USERS, seed=7):
@@ -575,7 +699,7 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sbr_rs_tpu_torch import data as sbr_data
     from sbr_rs_tpu_torch import datasets, evaluation
-    from sbr_rs_tpu_torch.models import Loss, Optimizer, engine, lstm
+    from sbr_rs_tpu_torch.models import Loss, Optimizer, base, engine, lstm
     from sbr_rs_tpu_torch.models.base import topk_streamed
     from sbr_rs_tpu_torch.models.towers import lstm_apply
     from sbr_rs_tpu_torch.ops import _build
@@ -1386,6 +1510,10 @@ def main() -> None:
             if count:
                 launches_by_path[name][path] = count
 
+    floors = (base.MERGE_BUFFER_FLOOR, base.SUBMAX_BUFFER_FLOOR, base.PHASE2_BUFFER_FLOOR)
+    if tuple(CONSTANT_BUDGETS.values()) != floors:
+        raise SmokeFailure(f"the constants' side {CONSTANT_BUDGETS} is not the port's floors {floors}")
+    budget_cells = {}  # cell -> {side: budgets, route, users/s}
     zero_counters()
     model.recommend_batch(histories, k=K)  # warm-up
     topk_streamed.rechecked_users = 0
@@ -1409,6 +1537,30 @@ def main() -> None:
     if not flag_kept or ids_tf32 != ids or not np.array_equal(vals_tf32, vals):
         raise SmokeFailure(f"phase 4: with allow_tf32 True the batch differs or the flag changed ({flag_kept})")
     print("  phase 4 with the caller's allow_tf32 True: the same ids and scores, the flag left True", flush=True)
+    budget_cells["serve-10M"] = budget_sides("phase 4 serve-10M", model, histories)
+    third = serve_side(
+        "phase 4 serve-10M", model, histories, "phase2", {"_PHASE2_BUFFER_BYTES": base.PHASE2_BUFFER_FLOOR}
+    )
+    card = budget_cells["serve-10M"]["card"]
+    check_same_lists("phase 4 serve-10M, phase 2's constant against the card's", third["ids"], third["vals"],
+                     card["ids"], card["vals"])
+    budget_cells["serve-10M"]["phase2"] = third
+    t0 = time.perf_counter()
+    for _ in range(100):
+        base.card_reading(dev)
+    t_read = (time.perf_counter() - t0) / 100
+    one = histories[0]
+    model.recommend(one, k=K)  # warm-up
+    one_times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        model.recommend(one, k=K)
+        one_times.append(time.perf_counter() - t0)
+    t_one = statistics.median(one_times)
+    print(f"  phase 4: one reading of the card's memory (base.card_reading) takes {t_read * 1e6:.1f} us of host, "
+          f"the device idle; a one-user recommend on serve-10M (which reads the card once) {t_one * 1e3:.3f} ms "
+          f"(median of 5: {', '.join(f'{t * 1e3:.3f}' for t in one_times)}), the reading {t_read / t_one:.2%} of it",
+          flush=True)
     model_merge = serving_model(N_ITEMS_MERGE, dev)
     model_merge._MERGE_BUFFER_BYTES = 0  # forces the running per-chunk merge
     hist_m = serving_histories(N_ITEMS_MERGE, USERS_MERGE, seed=8)
@@ -1486,49 +1638,83 @@ def main() -> None:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:100]}")
         return wall_ms, busy_ms, sum(e.count for e in on_device)
 
-    # -- phase 5d: serve-50M-merge, the running merge at default budgets ----------
+    # -- phase 5d: serve-50M-merge, on each side of the budgets ------------------------
     mark("phase 5d")
     del model, table
+    card_memory("phase 5d, the 10M model freed", dev)
     torch.cuda.empty_cache()
+    card_memory("phase 5d, after empty_cache", dev)
     t0 = time.perf_counter()
     model_50m = serving_model(N_ITEMS_50M, dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    merge_bytes = -(-N_ITEMS_50M // SERVE_CHUNK) * (SERVE_CHUNK // 128) * USERS * 8
-    print(f"phase 5d model: {N_ITEMS_50M} items, LSTM-{DIM} Normal, f32 table "
-          f"({model_50m._params['item_table'].numel() * 4 / 1e9:.1f} GB), built in {t_build:.1f} s; "
-          f"{merge_bytes / 1e9:.2f} GB of group maxima against the {model_50m._MERGE_BUFFER_BYTES / 2**30:g} GiB "
-          f"merge budget", flush=True)
-    if merge_bytes <= model_50m._MERGE_BUFFER_BYTES:
-        raise SmokeFailure("phase 5d: the catalog fits the single-pass budget; the running merge would not run")
-    hist_50 = serving_histories(N_ITEMS_50M)
-    zero_counters()
-    before = topk_streamed.rechecked_users
-    model_50m.recommend_batch(hist_50, k=K)  # warm-up
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        ids_50, vals_50 = model_50m.recommend_batch(hist_50, k=K, return_scores=True)
-        times.append(time.perf_counter() - t0)
-    t_med = statistics.median(times)
     chunks = -(-N_ITEMS_50M // SERVE_CHUNK)
-    print(
-        f"phase 5d serve-50M-merge recommend_batch k={K}: {USERS / t_med:.1f} users/s (median of 3: "
-        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per batch of {USERS}); K3 launched "
-        f"{tk.score_groupmax.launches} times in 4 batches ({chunks} chunks a batch); the certificate sent "
-        f"{(topk_streamed.rechecked_users - before) / 4:g} of {USERS} users a batch to the FP32 K3", flush=True,
-    )
-    read_counters("serve-50M-merge path", merge_kernels)
-    if tk.score_groupmax.launches != 4 * chunks:
-        raise SmokeFailure(f"phase 5d: {tk.score_groupmax.launches} K3 launches for 4 batches of {chunks} chunks")
-    profiled(f"phase 5d profile, one batch at {N_ITEMS_50M} items", lambda: model_50m.recommend_batch(hist_50, k=K),
-             top=10)
+    group_stack = chunks * (SERVE_CHUNK // 128) * USERS * 4
+    print(f"phase 5d model: {N_ITEMS_50M} items, LSTM-{DIM} Normal, f32 table "
+          f"({model_50m._params['item_table'].numel() * 4 / 1e9:.1f} GB), built in {t_build:.1f} s; the single "
+          f"pass wants twice its {group_stack / 1e9:.2f} GB of group maxima, and {4 * group_stack / 1e9:.2f} GB more "
+          f"for subgroups of 32, against the constants' {base.MERGE_BUFFER_FLOOR / 2**30:g} GiB", flush=True)
+    card_memory("phase 5d, the 50M model built", dev)
+    hist_50 = serving_histories(N_ITEMS_50M)
+
+    def after_50m(side, got):
+        """Each side's path: the card's budgets take the single pass (K4),
+        the constants the running merge (K3, one launch a chunk)."""
+        route = got["route"]
+        if side == "card":
+            if not route["single_pass"]:
+                raise SmokeFailure("phase 5d: the card's budgets did not take the single pass at 50M items")
+            read_counters("serve-50M path", ("lstm_fwd", "score_submax_groupmax" if route["sub"] < route["group"]
+                                             else "score_groupmax"))
+        else:
+            if route["single_pass"]:
+                raise SmokeFailure("phase 5d: the constants' budget took the single pass; the running merge would not run")
+            read_counters("serve-50M-merge path", merge_kernels)
+            if tk.score_groupmax.launches != 4 * chunks:
+                raise SmokeFailure(f"phase 5d: {tk.score_groupmax.launches} K3 launches for 4 batches of {chunks} chunks")
+        profiled(f"phase 5d profile, one batch at {N_ITEMS_50M} items, {SIDE_NAMES[side]}",
+                 lambda: model_50m.recommend_batch(hist_50, k=K), top=10)
+        zero_counters()
+
+    zero_counters()
+    sides = budget_sides("phase 5d serve-50M-merge", model_50m, hist_50, after=after_50m)
+    budget_cells["serve-50M-merge"] = sides
+    ids_50, vals_50 = sides["card"]["ids"].tolist(), sides["card"]["vals"]
     check_lists("phase 5d", ids_50, hist_50, N_ITEMS_50M)
     check_against_reference(
         "phase 5d", model_50m, hist_50[:REF_USERS], ids_50[:REF_USERS], vals_50[:REF_USERS], normal_lstm, torch
     )
-    del model_50m
+    del model_50m, sides
     torch.cuda.empty_cache()
+
+    # -- phase 5e: serve-20M-bf16 (benches/serving.py items20m_bf16), each side ----------
+    mark("phase 5e")
+    t0 = time.perf_counter()
+    model_20m = serving_model(N_ITEMS_BF16, dev, dtype="bfloat16")
+    torch.cuda.synchronize()
+    print(f"phase 5e model: {N_ITEMS_BF16} items, LSTM-{DIM} Normal, bf16 table "
+          f"({model_20m._params['item_table'].numel() * 2 / 1e9:.2f} GB), built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    hist_20 = serving_histories(N_ITEMS_BF16)
+    zero_counters()
+    sides = budget_sides(
+        "phase 5e serve-20M-bf16", model_20m, hist_20,
+        after=lambda side, got: profiled(f"phase 5e profile, one batch at {N_ITEMS_BF16} items, {SIDE_NAMES[side]}",
+                                         lambda: model_20m.recommend_batch(hist_20, k=K), top=6),
+    )
+    read_counters("serve-20M-bf16 path", ("lstm_fwd", "score_submax_groupmax"))
+    budget_cells["serve-20M-bf16"] = sides
+    ids_20, vals_20 = sides["card"]["ids"].tolist(), sides["card"]["vals"]
+    check_lists("phase 5e", ids_20, hist_20, N_ITEMS_BF16)
+    check_against_reference(
+        "phase 5e", model_20m, hist_20[:REF_USERS], ids_20[:REF_USERS], vals_20[:REF_USERS], normal_lstm, torch
+    )
+    del model_20m, sides
+    torch.cuda.empty_cache()
+    print(json.dumps({"serving_budgets": {
+        cell: {side: {k: v for k, v in got.items() if k not in ("ids", "vals")} for side, got in sides.items()}
+        for cell, sides in budget_cells.items()
+    }}), flush=True)
     model = serving_model(N_ITEMS, dev)  # phase 4's model again, for the profile and the evaluation path
     table = model._params["item_table"]
 
@@ -2548,7 +2734,7 @@ def mesh_phases(dev, mark, launches, launches_by_path, served):
     mark("phase 18a")
     t0 = time.perf_counter()
     data = fit_bench_split()[0].to_compressed()
-    parallel.initialize(backend="nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    parallel.initialize(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0, backend="nccl")
     try:
         plain, meshed = fit_bench_model(dev), fit_bench_model(dev, parallel.make_mesh(1, 1))
         plain.fit(data)
@@ -2728,7 +2914,11 @@ def mesh_phases(dev, mark, launches, launches_by_path, served):
 # after a warm-up, routes: {route: (class constants set on the model, world
 # size 1's lists of the same model in ``served``)}).
 SERVE_MESH_CELLS = {
-    "serve-10M-mesh": (N_ITEMS, 42, None, 3, {"default": ({}, "serve-10M")}),
+    "serve-10M-mesh": (N_ITEMS, 42, None, 3, {
+        "default": ({}, "serve-10M"),
+        "phase2": ({"_PHASE2_BUFFER_BYTES": CONSTANT_BUDGETS["_PHASE2_BUFFER_BYTES"]}, "serve-10M"),
+        # All three fixed: no reading and no all-gather of the readings.
+        "constants": (CONSTANT_BUDGETS, "serve-10M")}),
     "serve-1M-merge-mesh": (N_ITEMS_MERGE, 42, None, 1, {"merge": ({"_MERGE_BUFFER_BYTES": 0}, "serve-1M-merge")}),
     "copies-mesh": (N_ITEMS_MERGE, 43, REPEATS, 1,
                     {"single": ({}, "copies"), "merge": ({"_MERGE_BUFFER_BYTES": 0}, "copies-merge")}),
@@ -2775,13 +2965,23 @@ def serve_mesh_phase(run, served, mark, launches, launches_by_path):
             check_lists(f"phase 18c {name} {route}", ids.tolist(), histories, num_items)
             ties = check_same_lists(f"phase 18c {name} {route}", ids, vals, np.asarray(want_ids), want_vals)
             col = r["collectives"]
+            n_loc = -(-num_items // MESH_SHAPE[1])
+            taken = r["stream_route"]
+            if taken is None:
+                rank0_route = "no streamed top-k"
+            else:
+                b = taken["budgets_bytes"]
+                rank0_route = (f"merge {b[0] / 1e9:.2f} GB, submax {b[1] / 1e9:.2f} GB, phase 2 {b[2] / 1e9:.2f} GB; "
+                               + describe_route(types.SimpleNamespace(**taken["route"]), n_loc,
+                                                min(K + max(len(h) for h in histories), n_loc)))
             print(f"phase 18c {name} {route} ({MESH_SHAPE[0]} x {MESH_SHAPE[1]} mesh, gloo, 4 ranks on one card, "
                   f"{-(-num_items // MESH_SHAPE[1])}-row slabs, U={len(histories)}, k={K}): "
                   f"{r['users_per_s']:.1f} users/s (median of {repeats}: "
                   f"{', '.join(f'{t * 1e3:.1f}' for t in r['batch_s'])} ms a batch); rank 0's collectives a batch: "
                   f"{col['calls']:g} calls, {col['bytes'] / 1e6:.2f} MB, {col['seconds'] * 1e3:.1f} ms of host; "
                   f"rechecked in the last batch: {r['rechecked']} on rank 0, {r['rechecked_sum']} over the ranks; "
-                  f"the lists of world size 1 ({key}) with {ties} tied ranks; the four ranks bit-equal", flush=True)
+                  f"the lists of world size 1 ({key}) with {ties} tied ranks; the four ranks bit-equal; rank 0's "
+                  f"budgets and route: {rank0_route}", flush=True)
             if copies and r["rechecked"] != len(histories):
                 raise SmokeFailure(f"phase 18c {name} {route}: {r['rechecked']} users rechecked on rank 0, not all "
                                    f"{len(histories)}: every slab's top-10 ties")
@@ -2831,6 +3031,21 @@ def trace_serve_batch(log_dir):
     model.recommend_batch(histories, k=K)
     with trace(log_dir):
         model.recommend_batch(histories, k=K)
+
+
+def budget_sides(label, model, histories, after=None):
+    """Both sides of the serving budgets (:func:`serve_side`): the card's,
+    then the JAX package's constants; ``after(side, result)`` runs at the
+    end of each, on its budgets. The two sides' lists agree (scores within
+    TOL_REL relative, ids except at ties). Returns ``{side: result}``."""
+    sides = {}
+    for side, constants in (("card", {}), ("constants", CONSTANT_BUDGETS)):
+        sides[side] = serve_side(label, model, histories, side, constants,
+                                 None if after is None else functools.partial(after, side))
+    ties = check_same_lists(f"{label}, the constants' lists against the card's", sides["constants"]["ids"],
+                            sides["constants"]["vals"], sides["card"]["ids"], sides["card"]["vals"])
+    print(f"  {label}: the two sides serve the same lists ({ties} tied ranks)", flush=True)
+    return sides
 
 
 def check_lists(phase, ids, histories, n):

@@ -27,7 +27,7 @@ Serving (``recommend_batch``):
   Phase 1 keeps the top ``k + S`` groups by group maximum from the fused
   score + group-max kernels (:mod:`..ops.topk_kernels`, on the tensor
   cores in 3xTF32), over the whole catalog in one call when the maxima fit
-  ``_MERGE_BUFFER_BYTES`` (with subgroup refinement), else chunk by chunk
+  the merge budget (with subgroup refinement), else chunk by chunk
   with a running merge. Each user's result is certified against the FP32
   one, and the few it cannot certify run again in FP32. Phase 2 re-scores
   the kept candidates in f32, drops seen items by id and takes the exact
@@ -35,12 +35,16 @@ Serving (``recommend_batch``):
 * seen lists wider than ``_SERVE_MAX_POSTFILTER_SEEN``: chunked scoring
   with a per-chunk seen mask (:func:`topk_streamed_bigseen`).
 
-The budgets keep the JAX package's values, so both packages take the same
-branch for the same shapes. The plain matmuls of serving run in full FP32
-whatever the caller's ``torch.backends.cuda.matmul.allow_tf32``
+The budgets that pick the route and size its buffers are the JAX package's
+on the CPU, so both packages take the same branch for the same shapes. On a
+card they are derived from the memory free at the call
+(:meth:`ImplicitSequenceModel._serving_budgets`), the JAX package's values
+as floors; a budget set on the model fixes it on every device. The plain
+matmuls of serving run in full FP32 whatever the caller's
+``torch.backends.cuda.matmul.allow_tf32``
 (:func:`..utils.precision.fp32_matmul`); the flag is left as it was.
-``approximate=True`` is not ported. PyTorch runs eagerly, so there is no
-program cache.
+``approximate=True`` serves the exact list (its recall is 1). PyTorch runs
+eagerly, so there is no program cache.
 
 Under a mesh (``Hyperparameters.mesh``, :mod:`..parallel`) every rank runs
 the model's methods together: ``fit`` splits each batch over the ``data``
@@ -57,10 +61,12 @@ brings every slab's list to every rank, which merge them alike
 
 from __future__ import annotations
 
+import collections
 import functools
+import hashlib
 import itertools
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -258,8 +264,8 @@ class Hyperparameters:
 
     @classmethod
     def _from_dict_common(cls, d: dict) -> "Hyperparameters":
-        """Keys this package does not know (``use_pallas``, ``model_type``,
-        ``state_sha256``) are ignored."""
+        """The common keys; a family's own keys are its ``from_dict``'s, and
+        ``model_type`` and ``state_sha256`` are ignored."""
         hp = cls(d["num_items"], d["max_sequence_length"])
         hp._item_embedding_dim = d["item_embedding_dim"]
         hp._learning_rate = d["learning_rate"]
@@ -419,7 +425,7 @@ def _rescore(
     dropped; the top ``k_out`` values and their ids."""
     n, c_param = table.shape
     u, w = gids.shape
-    slot_bs = max(1, min(w, phase2_buffer_bytes // (u * width * c_param * 4)))
+    slot_bs = _slot_batch(w, u, width, c_param, phase2_buffer_bytes)
     arange_w = torch.arange(width, device=table.device)
     cand_parts, score_parts = [], []
     for s0 in range(0, w, slot_bs):
@@ -436,6 +442,141 @@ def _rescore(
     cscores.masked_fill_((cand[:, :, None] == seen[:, None, :]).any(dim=-1), float("-inf"))
     v, p = torch.topk(cscores, k_out, dim=1)
     return v, torch.gather(cand, 1, p)
+
+
+# -- the streamed top-k's route and its memory budgets --------------------------
+
+# The JAX package's budgets, sized for a 16 GB chip: serving's budgets on the
+# CPU, and their floors on a card.
+MERGE_BUFFER_FLOOR = 6 << 30
+SUBMAX_BUFFER_FLOOR = 6 << 30
+PHASE2_BUFFER_FLOOR = 1_200_000_000
+# Share of a card's memory the derived budgets leave alone: the caching
+# allocator's rounding, the kernels' scratch, phase 2's ids and other
+# allocations of the batch.
+BUDGET_MARGIN = 1 / 16
+
+
+class StreamRoute(NamedTuple):
+    """The route of :func:`topk_streamed`: ``single_pass`` (the whole
+    catalog in one kernel call; else the running merge, chunk by chunk), the
+    ``group`` width of phase 1's merge, the ``sub``group width of the
+    single pass's refinement (``group``: group maxima only) and phase 2's
+    ``slots``, the winning (sub)groups it gathers a step."""
+
+    single_pass: bool
+    group: int
+    sub: int
+    slots: int
+
+
+def _group_width(serve_chunk: int, group_target: int) -> int:
+    """The largest width <= ``group_target`` that divides the chunk."""
+    group = min(group_target, serve_chunk)
+    while serve_chunk % group:
+        group -= 1
+    return group
+
+
+def _slot_batch(w: int, u: int, width: int, c_param: int, phase2_buffer_bytes: int) -> int:
+    """Phase 2's slots a step, of ``w``: the gathered f32 rows ``[u, slots *
+    width, c_param]`` within the budget, and at least one slot."""
+    return max(1, min(w, phase2_buffer_bytes // (u * width * c_param * 4)))
+
+
+def stream_route(
+    n: int,
+    c_param: int,
+    u: int,
+    kk: int,
+    *,
+    serve_chunk: int,
+    group_target: int,
+    sub_target: int,
+    merge_buffer_bytes: int,
+    submax_buffer_bytes: int,
+    phase2_buffer_bytes: int,
+) -> StreamRoute:
+    """The route :func:`topk_streamed` takes for ``u`` users keeping ``kk``
+    candidates a user over ``n`` rows of ``c_param`` columns. The single
+    pass while twice its group-maxima stack fits the merge budget; its
+    subgroup width the narrowest kernel width >= ``sub_target`` that
+    divides the group and whose maxima stack fits the submax budget."""
+    num_chunks = -(-n // serve_chunk)
+    group = _group_width(serve_chunk, group_target)
+    single_pass = num_chunks * (serve_chunk // group) * u * 8 <= merge_buffer_bytes
+    sub = group
+    if single_pass:
+        for d in range(max(1, sub_target), group + 1):
+            if group % d:
+                continue
+            if num_chunks * (serve_chunk // d) * u * 4 > submax_buffer_bytes:
+                continue
+            if not groupmax_supported(serve_chunk, c_param, u, d):
+                continue
+            sub = d
+            break
+    return StreamRoute(single_pass, group, sub, _slot_batch(kk, u, sub, c_param, phase2_buffer_bytes))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_id(index: int) -> int:
+    """An id of card ``index``, the same in every process that uses it:
+    from its UUID, which never changes, so it is hashed once."""
+    uuid = str(torch.cuda.get_device_properties(index).uuid)
+    return int(hashlib.sha256(uuid.encode()).hexdigest()[:15], 16)
+
+
+def card_reading(device: torch.device) -> Optional[Tuple[int, int, int, int]]:
+    """``(card, free, cached, total)`` bytes of the card ``device``: an id
+    of the card (:func:`_card_id`); the bytes free on the card
+    (``torch.cuda.mem_get_info``); the bytes this process's caching
+    allocator holds in segments it could release (reserved, less
+    allocated, less the free pieces of segments still in use); the card's
+    total. ``None`` for a device that is not a card."""
+    if device.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(device)
+    # The nested form: memory_stats() would flatten it in Python on every call.
+    stats = torch.cuda.memory_stats_as_nested_dict(device)
+    cached = sum(
+        sign * stats.get(key, {}).get("all", {}).get("current", 0)
+        for sign, key in ((1, "reserved_bytes"), (-1, "allocated_bytes"), (-1, "inactive_split_bytes"))
+    )
+    card = _card_id(torch.cuda.current_device() if device.index is None else device.index)
+    return card, int(free), max(0, int(cached)), int(total)
+
+
+def budget_share(readings: Sequence[Tuple[int, int, int, int]]) -> int:
+    """The bytes every rank may give a batch's serving buffers, from each
+    rank's :func:`card_reading`: a card's free bytes less
+    :data:`BUDGET_MARGIN` of its total, split evenly among the ranks that
+    use it, plus the rank's own releasable cache; then the least over the
+    ranks, so that ranks holding the same slab take the same route and
+    serve the same bits."""
+    on_card = collections.Counter(card for card, *_ in readings)
+    shares = (
+        (free - int(BUDGET_MARGIN * total)) // on_card[card] + cached for card, free, cached, total in readings
+    )
+    return max(0, min(shares))
+
+
+def derive_budgets(avail: int, n: int, u: int, *, serve_chunk: int, group_target: int) -> Tuple[int, int, int]:
+    """``(merge, submax, phase2)`` bytes from ``avail`` bytes free for a
+    batch of ``u`` users over ``n`` rows, each at least its floor. The
+    single pass allocates the group-maxima stack, and with the refinement
+    the subgroup stack beside it: the merge budget is the whole of
+    ``avail`` (the route takes it while twice the group stack fits, room for
+    the stack and the top-k's work), the submax budget what the group stack
+    leaves. Phase 2 runs once both are freed; its rows gathered in the
+    table's dtype and their f32 copy may live together, so it takes half."""
+    group = _group_width(serve_chunk, group_target)
+    group_stack = -(-n // serve_chunk) * (serve_chunk // group) * u * 4
+    return (
+        max(MERGE_BUFFER_FLOOR, avail),
+        max(SUBMAX_BUFFER_FLOOR, avail - group_stack),
+        max(PHASE2_BUFFER_FLOOR, avail // 2),
+    )
 
 
 def topk_streamed(
@@ -478,39 +619,27 @@ def topk_streamed(
     chunks) and keep ``kk + 1`` groups, whose last maximum is ``theta_u``
     (:func:`_group_winners`); they certify the same way and recheck with
     :func:`..ops.topk_kernels.score_groupmax_fp32`.
+
+    ``topk_streamed.last_route`` holds the last call's route and its
+    ``(merge, submax, phase2)`` budgets.
     """
     n, c_param = table.shape
     u = reps.shape[0]
-    num_chunks = -(-n // serve_chunk)
-    group = min(group_target, serve_chunk)
-    while serve_chunk % group:
-        group -= 1  # the largest width <= target that divides the chunk
-    groups_per_chunk = serve_chunk // group
     kk = min(k + seen.shape[1], n)
     k_out = min(k, n)
     reps_aug = torch.cat([reps, reps.new_ones((u, 1))], dim=1).contiguous()
+    route = stream_route(
+        n, c_param, u, kk, serve_chunk=serve_chunk, group_target=group_target, sub_target=sub_target,
+        merge_buffer_bytes=merge_buffer_bytes, submax_buffer_bytes=submax_buffer_bytes,
+        phase2_buffer_bytes=phase2_buffer_bytes,
+    )
+    topk_streamed.last_route = (route, (merge_buffer_bytes, submax_buffer_bytes, phase2_buffer_bytes))
+    single_pass, group, sub, _ = route
     if not groupmax_supported(serve_chunk, c_param, u, group):
         raise ValueError(
             f"the score+group-max kernel does not take group width {group} "
             f"(serve chunk {serve_chunk}, row width {c_param})"
         )
-    total_groups = num_chunks * groups_per_chunk
-    single_pass = total_groups * u * 8 <= merge_buffer_bytes
-
-    # Subgroup width for the final selection (single-pass merge only): the
-    # narrowest kernel width >= sub_target that divides the group and whose
-    # maxima stack fits the budget.
-    sub = group
-    if single_pass:
-        for d in range(max(1, sub_target), group + 1):
-            if group % d:
-                continue
-            if num_chunks * (serve_chunk // d) * u * 4 > submax_buffer_bytes:
-                continue
-            if not groupmax_supported(serve_chunk, c_param, u, d):
-                continue
-            sub = d
-            break
     r = group // sub
 
     def certify(vals, ids, theta, redo_fn):
@@ -559,6 +688,7 @@ def topk_streamed(
 
 
 topk_streamed.rechecked_users = 0
+topk_streamed.last_route = None
 
 
 def topk_streamed_bigseen(
@@ -686,15 +816,17 @@ class ImplicitSequenceModel:
     _data_shares = 1
     # Above this seen-list width, the k+S candidate post-filter stops paying.
     _SERVE_MAX_POSTFILTER_SEEN = 128
+    # Serving's budgets in bytes (stream_route): None takes the device's
+    # (_serving_budgets), a number fixes the budget on every device.
     # Single-pass phase-1 merge when 2x the group-maxima stack fits.
-    _MERGE_BUFFER_BYTES = 6 << 30
+    _MERGE_BUFFER_BYTES: Optional[int] = None
     # Phase-2 rescoring: gathered f32 candidate rows per slot batch.
-    _PHASE2_BUFFER_BYTES = 1_200_000_000
+    _PHASE2_BUFFER_BYTES: Optional[int] = None
     # Phase-1 group width and the subgroup width of the refinement.
     _GROUP_TARGET = 128
     _SUBGROUP_TARGET = 32
     # Largest subgroup-maxima stack the refinement may allocate.
-    _SUBMAX_BUFFER_BYTES = 6 << 30
+    _SUBMAX_BUFFER_BYTES: Optional[int] = None
 
     def __init__(
         self, hyper: Hyperparameters, device: "torch.device | str", item_table: Optional[torch.Tensor] = None
@@ -998,6 +1130,8 @@ class ImplicitSequenceModel:
         histories: Sequence[Sequence[int]],
         k: int = 10,
         exclude_seen: bool = True,
+        approximate: bool = False,
+        recall_target: float = 0.95,
         return_scores: bool = False,
     ):
         """Exact top-``k`` next items for many histories: representations,
@@ -1008,55 +1142,102 @@ class ImplicitSequenceModel:
         serves the whole batch: the top-k of its slab, then one all-gather
         of the slabs' lists over ``model`` and the same merge on every rank
         (:func:`topk_slab`, :func:`merge_topk_parts`), so every rank returns
-        the same ids and scores."""
+        the same ids and scores.
+
+        ``approximate`` and ``recall_target`` are the JAX package's
+        arguments for its ``lax.approx_max_k`` mode, a TPU operation that
+        guarantees a recall of at least ``recall_target``. Here both modes
+        serve the exact list, whose recall is 1, so it meets every target;
+        with ``approximate=True``, ``recall_target`` must lie in (0, 1], as
+        the JAX package's mode requires."""
+        if approximate and not 0.0 < recall_target <= 1.0:
+            raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
         if not len(histories):
             return ([], np.zeros((0, k), np.float32)) if return_scores else []
         flat, lens = _flatten(histories)
-        reps = self._representations(flat, lens)
         n = self.hyper._num_items
         if exclude_seen:
             seen_np = _seen_rows(flat, lens, n, max(int(lens.max()), 1))
         else:
             seen_np = np.full((len(lens), 1), n, dtype=np.int64)
+        # Read before the tower is queued: the reading waits for no kernel.
+        budgets = self._serving_budgets(*seen_np.shape)
+        reps = self._representations(flat, lens)
         seen = torch.from_numpy(seen_np).to(self.device)
-        vals, idx = self._topk(reps, seen, min(k, n))
+        vals, idx = self._topk(reps, seen, min(k, n), budgets)
         ids = idx.cpu().numpy().tolist()
         return (ids, vals.cpu().numpy()) if return_scores else ids
 
-    def _topk(self, reps: torch.Tensor, seen: torch.Tensor, k: int):
-        """The exact top-``k`` of the whole catalog: the table's own route,
-        or on a row-sharded table the slab's, then the cross-shard merge.
-        The slab's list travels in one all-gather (values as their int32
-        bits beside the ids, in one int64 tensor)."""
+    def _topk(self, reps: torch.Tensor, seen: torch.Tensor, k: int, budgets: Tuple[int, int, int]):
+        """The exact top-``k`` of the whole catalog on the ``budgets``
+        (:meth:`_serving_budgets`): the table's own route, or on a
+        row-sharded table the slab's, then the cross-shard merge. The
+        slab's list travels in one all-gather (values as their int32 bits
+        beside the ids, in one int64 tensor)."""
         table = self._params["item_table"]
         mesh = self.hyper._mesh
+        route = functools.partial(self._catalog_topk, budgets=budgets)
         if mesh is None or mesh.model == 1:
-            return self._catalog_topk(table, reps, seen, k)
+            return route(table, reps, seen, k)
         n = self.hyper._num_items
         lo, _ = slab_range(mesh, n)
-        vals, ids = topk_slab(self._catalog_topk, table, reps, seen, k, lo, n)
+        vals, ids = topk_slab(route, table, reps, seen, k, lo, n)
         packed = torch.cat([vals.view(torch.int32).to(torch.int64), ids], dim=1)
         parts = [
             (p[:, :k].to(torch.int32).view(torch.float32), p[:, k:]) for p in mesh.all_gather(packed, MODEL_AXIS)
         ]
         return merge_topk_parts(parts, k, n)
 
-    def _catalog_topk(self, table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int):
+    def _serving_budgets(self, u: int, seen_width: int) -> Tuple[int, int, int]:
+        """``(merge, submax, phase2)`` bytes for a batch of ``u`` users with
+        seen lists ``seen_width`` wide (:func:`topk_streamed`). A budget set
+        on the model (``_MERGE_BUFFER_BYTES``, ``_SUBMAX_BUFFER_BYTES``,
+        ``_PHASE2_BUFFER_BYTES`` not ``None``) is taken as it is. The others
+        are the floors on the CPU (the JAX package's values), and on a card
+        :func:`derive_budgets` of the bytes free at the call
+        (:func:`card_reading`, :func:`budget_share`) for the largest slab.
+        Under a mesh the ranks' readings travel in one all-gather (on the
+        host over gloo), so every rank takes the same budgets. The card is
+        read only for a batch the streamed route serves (the largest slab
+        past one chunk, seen lists the post-filter takes): the same on every
+        rank, so every rank joins the collective or none does."""
+        fixed = (self._MERGE_BUFFER_BYTES, self._SUBMAX_BUFFER_BYTES, self._PHASE2_BUFFER_BYTES)
+        budgets = (MERGE_BUFFER_FLOOR, SUBMAX_BUFFER_FLOOR, PHASE2_BUFFER_FLOOR)
+        mesh = self.hyper._mesh
+        rows = -(-self.hyper._num_items // (1 if mesh is None else mesh.model))
+        streamed = rows > self._SERVE_ITEM_CHUNK and seen_width <= self._SERVE_MAX_POSTFILTER_SEEN
+        reading = card_reading(self.device) if streamed and None in fixed else None
+        if reading is not None:
+            readings = [reading]
+            if mesh is not None:
+                on = self.device if mesh.backend == "nccl" else "cpu"
+                mine = torch.tensor(reading, dtype=torch.int64, device=on)
+                readings = [tuple(p.tolist()) for p in mesh.all_gather(mine, None)]
+            budgets = derive_budgets(
+                budget_share(readings), rows, u, serve_chunk=self._SERVE_ITEM_CHUNK, group_target=self._GROUP_TARGET
+            )
+        return tuple(b if f is None else f for f, b in zip(fixed, budgets))
+
+    def _catalog_topk(
+        self, table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int, budgets: Tuple[int, int, int]
+    ):
         """The exact top-``k`` of ``table`` as a whole catalog (seen ids
-        past it never match), by the route its size and the seen width pick."""
+        past it never match), by the route its size, the seen width and the
+        ``(merge, submax, phase2)`` budgets (:meth:`_serving_budgets`) pick."""
         serve_chunk = self._SERVE_ITEM_CHUNK
         if table.shape[0] <= serve_chunk:
             return topk_small(table, reps, seen, k)
         if seen.shape[1] > self._SERVE_MAX_POSTFILTER_SEEN:
             return topk_streamed_bigseen(table, reps, seen, k, serve_chunk=serve_chunk)
+        merge, submax, phase2 = budgets
         return topk_streamed(
             table, reps, seen, k,
             serve_chunk=serve_chunk,
             group_target=self._GROUP_TARGET,
             sub_target=self._SUBGROUP_TARGET,
-            merge_buffer_bytes=self._MERGE_BUFFER_BYTES,
-            submax_buffer_bytes=self._SUBMAX_BUFFER_BYTES,
-            phase2_buffer_bytes=self._PHASE2_BUFFER_BYTES,
+            merge_buffer_bytes=merge,
+            submax_buffer_bytes=submax,
+            phase2_buffer_bytes=phase2,
         )
 
     def predict(self, user: ImplicitUser, item_ids: "Sequence[int] | None" = None) -> np.ndarray:

@@ -35,9 +35,19 @@ class Hyperparameters(base.Hyperparameters):
     def __init__(self, num_items: int, max_sequence_length: int):
         super().__init__(num_items, max_sequence_length)
         self._lstm_variant = LSTMVariant.COUPLED
+        self._use_pallas: "bool | None" = None
 
     def lstm_variant(self, variant: LSTMVariant) -> "Hyperparameters":
         self._lstm_variant = variant
+        return self
+
+    def use_pallas(self, enabled: "bool | None") -> "Hyperparameters":
+        """The JAX package's switch between its Pallas LSTM kernel and its
+        ``lax.scan`` tower. Recorded (``to_dict`` writes it, so a checkpoint
+        keeps it for either package) and ignored: the recurrence is the CUDA
+        kernels K1/K2 for a model on ``cuda`` whatever the flag, and the
+        plain PyTorch loops on ``cpu``."""
+        self._use_pallas = enabled
         return self
 
     @classmethod
@@ -53,6 +63,7 @@ class Hyperparameters(base.Hyperparameters):
     def to_dict(self) -> dict:
         d = super().to_dict()
         d["lstm_variant"] = self._lstm_variant.value
+        d["use_pallas"] = self._use_pallas
         d["model_type"] = "lstm"
         return d
 
@@ -60,6 +71,7 @@ class Hyperparameters(base.Hyperparameters):
     def from_dict(cls, d: dict) -> "Hyperparameters":
         hp = cls._from_dict_common(d)
         hp._lstm_variant = LSTMVariant(d["lstm_variant"])
+        hp._use_pallas = d.get("use_pallas")
         return hp
 
     def build(self, device: "torch.device | str" = "cuda") -> "ImplicitLSTMModel":

@@ -11,12 +11,13 @@ processes' group.
 
 from .distributed import global_mesh, initialize, is_primary, shutdown
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, make_mesh
-from .sharding import batch_slice, shard_model_params
+from .sharding import batch_sharding, batch_slice, shard_model_params
 
 __all__ = [
     "make_mesh",
     "shard_model_params",
     "batch_slice",
+    "batch_sharding",
     "Mesh",
     "DATA_AXIS",
     "MODEL_AXIS",

@@ -95,6 +95,7 @@ class Mesh:
                 if row == self.d:
                     self._groups[MODEL_AXIS] = g
         self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        self.device: Optional[torch.device] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -159,6 +160,7 @@ class Mesh:
 def make_mesh(
     data: Optional[int] = None,
     model: Optional[int] = None,
+    devices: Optional[Sequence["torch.device | str"]] = None,
     ranks: Optional[Sequence[int]] = None,
 ) -> Mesh:
     """A ``(data, model)`` mesh over the process group's ranks (default: all,
@@ -166,10 +168,32 @@ def make_mesh(
     :func:`mesh_shape`. Every rank calls it, with the same arguments (the
     axis groups are made collectively). Without an initialised process group
     the world is this one process. Raises ``ValueError`` when the mesh does
-    not cover the process group's ranks exactly once."""
-    size, _ = world()
+    not cover the process group's ranks exactly once.
+
+    ``devices``, as in the JAX package, names the mesh's devices in the
+    mesh's order: one a rank, ``devices[i]`` that of rank ``ranks[i]``.
+    This rank's device becomes ``Mesh.device``, and a card becomes the
+    process's current one, the card a ``build()`` without a device takes.
+    Raises ``ValueError`` when there is not one device a rank, or a card
+    named is not present."""
+    size, rank = world()
     ranks = list(range(size)) if ranks is None else [int(r) for r in ranks]
     if sorted(ranks) != list(range(size)):
         raise ValueError(f"a mesh spans the process group's {size} ranks exactly once, got ranks {ranks}")
     data, model = mesh_shape(len(ranks), data, model)
-    return Mesh(data, model, ranks)
+    device = None
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != len(ranks):
+            raise ValueError(f"{len(devices)} devices for a mesh of {len(ranks)} ranks: one a rank")
+        device = devices[ranks.index(rank)]
+        if device.type == "cuda":
+            if not torch.cuda.is_available() or (device.index or 0) >= torch.cuda.device_count():
+                raise ValueError(f"{device} is not present")
+            if device.index is not None:
+                torch.cuda.set_device(device.index)
+        elif device.type != "cpu":
+            raise ValueError(f"a rank runs on cuda or cpu, not {device}")
+    mesh = Mesh(data, model, ranks)
+    mesh.device = device
+    return mesh

@@ -7,7 +7,8 @@ Rule set (the JAX package's):
   leaves — row-sharded over the ``model`` axis: slab ``m`` holds rows
   ``[m * n_loc, min((m + 1) * n_loc, N))``, ``n_loc = ceil(N / model)``;
 * the tower, ``alpha`` and the step counts — replicated;
-* batches — split over the ``data`` axis (:func:`batch_slice`).
+* batches — split over the ``data`` axis (:func:`batch_slice`,
+  :func:`batch_sharding`).
 
 Where XLA turns a gather from a sharded table into collectives, the port
 does it by hand (:func:`gather_rows_sharded`): each rank gathers its own
@@ -92,6 +93,23 @@ def batch_slice(mesh: Optional[Mesh], batch_size: int) -> slice:
     return slice(mesh.d * b, (mesh.d + 1) * b)
 
 
+def batch_sharding(mesh: Optional[Mesh], ndim: int = 2) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The split of a batch over the ``data`` axis (the JAX package's
+    ``NamedSharding(mesh, P("data", None, ...))`` for arrays of ``ndim``
+    dimensions): a function that takes the whole batch ``[B, ...]``, the same
+    on every rank, and returns this rank's rows of it, the share
+    :func:`batch_slice` gives and ``fit`` trains on. Raises ``ValueError``
+    for a batch of another rank than ``ndim`` or one that does not split
+    evenly."""
+
+    def shard(batch: torch.Tensor) -> torch.Tensor:
+        if batch.ndim != ndim:
+            raise ValueError(f"a batch sharding for {ndim} dimensions got {batch.ndim}")
+        return batch[batch_slice(mesh, batch.shape[0])]
+
+    return shard
+
+
 def to_local(ids: torch.Tensor, lo: int, hi: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(ids - lo, in_slab)``: slab-local ids (out of range where
     ``in_slab`` is false) and which ids the slab ``[lo, hi)`` owns."""
@@ -160,6 +178,7 @@ __all__ = [
     "slab_range",
     "shard_model_params",
     "batch_slice",
+    "batch_sharding",
     "to_local",
     "owner_sum",
     "gather_rows_sharded",

@@ -42,7 +42,8 @@ rank 0 writes) and ``cases``, run in order, each with its own mesh:
 Rank 0 writes ``<name>.epoch_losses``, ``<name>.ranks``, ``<name>.reps``,
 ``<name>.scores``, ``<name>.<route>.ids`` and ``<name>.<route>.vals`` and,
 with ``gather``, ``<name>.params.<path>`` to ``out``, and prints one JSON
-line per run: each case's mesh, losses, MRR,
+line per run: the process group's size, each case's mesh (made with the
+spec's ``device`` as every rank's), losses, MRR,
 fit seconds and examples/s, the card memory the build or load peaked at,
 the checkpoint's hash, the host seconds, calls and bytes of the
 collectives during the fit, the kernels' launches during the fit and the
@@ -50,8 +51,9 @@ evaluation, whether the replicas along the data axis (and the tower on
 every rank) are bit-equal, the results of ``clone`` and ``check_rows``,
 and for ``recommend`` each route's users/s (the median batch), rank 0's
 collectives a batch, the users the certificate rechecked in the last
-batch (rank 0's and the sum over the ranks), the kernels' launches over
-all the routes' batches, and each rank's sha256 of every route's last ids
+batch (rank 0's and the sum over the ranks), the budgets and route of
+rank 0's streamed top-k in the last batch (null where its slab took
+another route), the kernels' launches over all the routes' batches, and each rank's sha256 of every route's last ids
 and scores and of ``predict``'s scores of the first history.
 """
 
@@ -191,6 +193,7 @@ def _recommend(model, mesh, spec, name, out, device) -> dict:
             model.recommend_batch(histories, k=k, return_scores=True)
         times, before = [], dict(mesh.stats)
         for _ in range(repeats):
+            topk_streamed.last_route = None
             checked = topk_streamed.rechecked_users
             t0 = time.perf_counter()
             ids, vals = model.recommend_batch(histories, k=k, return_scores=True)
@@ -198,10 +201,12 @@ def _recommend(model, mesh, spec, name, out, device) -> dict:
         rechecked = topk_streamed.rechecked_users - checked
         total = torch.tensor([rechecked], dtype=torch.int64, device=device)
         ids = np.asarray(ids, dtype=np.int64)
+        taken = topk_streamed.last_route  # this rank's streamed top-k: its route and budgets
         result["routes"][route] = {
             "users_per_s": len(histories) / float(np.median(times)), "batch_s": times,
             "collectives": {key: (mesh.stats[key] - before[key]) / repeats for key in before},
             "rechecked": rechecked, "rechecked_sum": int(mesh.all_reduce(total, None)),
+            "stream_route": None if taken is None else {"route": taken[0]._asdict(), "budgets_bytes": list(taken[1])},
         }
         out[f"{name}.{route}.ids"], out[f"{name}.{route}.vals"] = ids, vals
         digests += [torch.from_numpy(ids), torch.from_numpy(np.ascontiguousarray(vals))]
@@ -225,8 +230,9 @@ def run_case(case, inputs, spec, out):
     from sbr_rs_tpu_torch.utils.tree import flatten, unflatten
 
     name = case["name"]
-    device = torch.device(spec["device"])
-    mesh = make_mesh(*case["mesh"])
+    data, model_axis = case["mesh"]
+    mesh = make_mesh(data, model_axis, devices=[spec["device"]] * (data * model_axis))
+    device = mesh.device
     result = {"mesh": [mesh.data, mesh.model]}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -332,9 +338,10 @@ def main() -> None:
     if spec["backend"] == "nccl":
         os.environ.setdefault("LOCAL_RANK", str(rank))
     parallel.initialize(
-        backend=spec["backend"], init_method=f"tcp://127.0.0.1:{port}", world_size=world_size, rank=rank,
+        f"127.0.0.1:{port}", num_processes=world_size, process_id=rank, backend=spec["backend"],
         timeout_s=spec.get("timeout_s", 120),
     )
+    joined = parallel.mesh.world()  # the process group's (size, rank)
     inputs = np.load(spec["inputs"]) if spec.get("inputs") else None
     out, results = {}, {}
     try:
@@ -344,7 +351,7 @@ def main() -> None:
         parallel.shutdown()
     if rank == 0:
         np.savez(spec["out"], **out)
-        print(json.dumps({"world": world_size, "backend": spec["backend"], "cases": results}), flush=True)
+        print(json.dumps({"world": joined[0], "backend": spec["backend"], "cases": results}), flush=True)
 
 
 def free_port() -> int:

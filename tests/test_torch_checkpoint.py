@@ -247,7 +247,7 @@ def test_jax_checkpoint_loads_in_the_port(name, dtype, chunked, request, tmp_pat
         assert b"__msgpack_chunked_array__" in (tmp_path / "state.msgpack").read_bytes()
     pm = ImplicitSequenceModel.load(str(tmp_path), "cpu")
     assert type(pm) is MODEL_CLASSES[name]
-    assert pm.hyper.to_dict() == {k: v for k, v in jm.hyper.to_dict().items() if k != "use_pallas"}
+    assert pm.hyper.to_dict() == jm.hyper.to_dict()
     _assert_params_equal(pm, jm._params)
     assert np.array_equal(pm._jax_key, np.asarray(jm._key))
     _assert_same_service(pm, jm)

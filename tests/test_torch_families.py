@@ -142,22 +142,19 @@ FAMILY_RANDOM = [
 ]
 
 
-@pytest.mark.parametrize("seed", [0, 11, 2024])
+@pytest.mark.parametrize("seed", [0, 11, 2024, 7, 99])
 @pytest.mark.parametrize("name, jax_mod, mod", FAMILY_RANDOM)
 def test_random_makes_the_jax_draws(name, jax_mod, mod, seed, monkeypatch):
     """Over as many devices on both sides (the port's one CPU device against
     JAX told it has one; eight against JAX's eight virtual CPU devices of
     ``tests/conftest.py``), every field agrees, ``num_threads`` included."""
-    def drop_jax_only(d):
-        return {k: v for k, v in d.items() if k != "use_pallas"}
-
     with monkeypatch.context() as m:
         m.setattr(jax, "device_count", lambda: 1)
-        want_one = drop_jax_only(jax_mod.Hyperparameters.random(1234, seed).to_dict())
+        want_one = jax_mod.Hyperparameters.random(1234, seed).to_dict()
     got_one = mod.Hyperparameters.random(1234, seed).to_dict()
     assert got_one["num_threads"] == 1 and got_one["model_type"] == name
     assert got_one == want_one
-    want_eight = drop_jax_only(jax_mod.Hyperparameters.random(1234, np.random.default_rng(seed)).to_dict())
+    want_eight = jax_mod.Hyperparameters.random(1234, np.random.default_rng(seed)).to_dict()
     monkeypatch.setattr(base, "device_count", lambda: jax.device_count())
     assert mod.Hyperparameters.random(1234, np.random.default_rng(seed)).to_dict() == want_eight
 

@@ -184,7 +184,7 @@ def test_hyperparameters_round_trip_with_jax():
     hp = lstm.Hyperparameters.from_dict(jd)
     assert hp._lstm_variant is lstm.LSTMVariant.NORMAL
     d = hp.to_dict()
-    assert d == {k: v for k, v in jd.items() if k != "use_pallas"}
+    assert d == jd
     assert jax_lstm.Hyperparameters.from_dict(d).to_dict() == jd
 
 

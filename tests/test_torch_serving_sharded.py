@@ -15,6 +15,8 @@ Scores agree to 1e-5 relative; ids agree except where two candidates'
 scores tie within that tolerance.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -66,10 +68,11 @@ def _sharded(model, histories, k, slabs, exclude_seen=True):
     seen = _seen_rows(flat, lens, n, width) if exclude_seen else np.full((len(lens), 1), n, np.int64)
     seen = torch.from_numpy(seen)
     table = model._params["item_table"]
+    route = functools.partial(model._catalog_topk, budgets=model._serving_budgets(len(histories), width))
     parts = []
     for m in range(slabs):
         lo, hi = slab_range(At(m, slabs), n)
-        parts.append(topk_slab(model._catalog_topk, table[lo:hi], reps, seen, k, lo, n))
+        parts.append(topk_slab(route, table[lo:hi], reps, seen, k, lo, n))
     return merge_topk_parts(parts, k, n)
 
 
