@@ -353,9 +353,8 @@ class SmokeFailure(Exception):
     pass
 
 
-# -- the cells, shared with scripts/torch_ab.py (which imports this file to
-# time them for two checkouts in turns). Each imports sbr_rs_tpu_torch from
-# the first checkout on sys.path.
+# -- the cells. Each imports sbr_rs_tpu_torch from the first checkout on
+# sys.path.
 
 
 def serving_hyper(num_items, seed=42, dtype="float32"):

@@ -87,7 +87,7 @@ from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, world
 from ..parallel.sharding import batch_slice, gather_slabs, read_rows, slab_range
 from ..utils import checkpoint
 from ..utils.convert import params_from_numpy
-from ..utils.metrics import FitHistory, logger
+from ..utils.metrics import FitHistory, logger, span
 from ..utils.precision import fp32_matmul
 from ..utils.tree import flatten, map_leaves
 from . import ImplicitUser, Loss, Optimizer, Parallelism
@@ -331,16 +331,17 @@ def topk_small(
     table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense ``[U, N]`` scores, seen items set to ``-inf``, one top-k."""
-    tab = table.to(torch.float32)
-    n = tab.shape[0]
-    with fp32_matmul():
-        scores = reps @ tab[:, :-1].T + tab[:, -1]
-    # Padding slots hold n: a masked scatter skips them (and any id
-    # outside the catalog) instead of indexing past the end.
-    valid = (seen >= 0) & (seen < n)
-    rows = torch.arange(reps.shape[0], device=reps.device)[:, None].expand_as(seen)
-    scores[rows[valid], seen[valid]] = float("-inf")
-    return torch.topk(scores, min(k, n), dim=1)
+    with span("topk.small"):
+        tab = table.to(torch.float32)
+        n = tab.shape[0]
+        with fp32_matmul():
+            scores = reps @ tab[:, :-1].T + tab[:, -1]
+        # Padding slots hold n: a masked scatter skips them (and any id
+        # outside the catalog) instead of indexing past the end.
+        valid = (seen >= 0) & (seen < n)
+        rows = torch.arange(reps.shape[0], device=reps.device)[:, None].expand_as(seen)
+        scores[rows[valid], seen[valid]] = float("-inf")
+        return torch.topk(scores, min(k, n), dim=1)
 
 
 def _submax_winners(
@@ -390,7 +391,8 @@ def _group_winners(
     the last is shorter, and the kernel masks its rows past ``n``."""
     n = table.shape[0]
     if single_pass:
-        gmax = score(table, 0)
+        with span("topk.phase1"):
+            gmax = score(table, 0)
         vals, gids = (t.T for t in torch.topk(gmax, min(kk + 1, gmax.shape[0]), dim=0))
     else:
         groups_per_chunk = serve_chunk // group
@@ -400,7 +402,8 @@ def _group_winners(
         gids = (past + torch.arange(kk + 1, device=table.device)).expand(u, kk + 1)
         for ch in range(num_chunks):
             lo = ch * serve_chunk
-            gm = score(table[lo : lo + serve_chunk], lo)[:groups_per_chunk]
+            with span("topk.phase1"):
+                gm = score(table[lo : lo + serve_chunk], lo)[:groups_per_chunk]
             cv, cp = torch.topk(gm, min(kk + 1, gm.shape[0]), dim=0)
             mv = torch.cat([vals, cv.T], dim=1)
             mg = torch.cat([gids, ch * groups_per_chunk + cp.T], dim=1)
@@ -627,62 +630,77 @@ def topk_streamed(
     u = reps.shape[0]
     kk = min(k + seen.shape[1], n)
     k_out = min(k, n)
-    reps_aug = torch.cat([reps, reps.new_ones((u, 1))], dim=1).contiguous()
-    route = stream_route(
-        n, c_param, u, kk, serve_chunk=serve_chunk, group_target=group_target, sub_target=sub_target,
-        merge_buffer_bytes=merge_buffer_bytes, submax_buffer_bytes=submax_buffer_bytes,
-        phase2_buffer_bytes=phase2_buffer_bytes,
-    )
-    topk_streamed.last_route = (route, (merge_buffer_bytes, submax_buffer_bytes, phase2_buffer_bytes))
-    single_pass, group, sub, _ = route
-    if not groupmax_supported(serve_chunk, c_param, u, group):
-        raise ValueError(
-            f"the score+group-max kernel does not take group width {group} "
-            f"(serve chunk {serve_chunk}, row width {c_param})"
+    with span("topk.route"):
+        reps_aug = torch.cat([reps, reps.new_ones((u, 1))], dim=1).contiguous()
+        route = stream_route(
+            n, c_param, u, kk, serve_chunk=serve_chunk, group_target=group_target, sub_target=sub_target,
+            merge_buffer_bytes=merge_buffer_bytes, submax_buffer_bytes=submax_buffer_bytes,
+            phase2_buffer_bytes=phase2_buffer_bytes,
         )
+        topk_streamed.last_route = (route, (merge_buffer_bytes, submax_buffer_bytes, phase2_buffer_bytes))
+        single_pass, group, sub, _ = route
+        if not groupmax_supported(serve_chunk, c_param, u, group):
+            raise ValueError(
+                f"the score+group-max kernel does not take group width {group} "
+                f"(serve chunk {serve_chunk}, row width {c_param})"
+            )
     r = group // sub
 
     def certify(vals, ids, theta, redo_fn):
         """Rows of the users the bound certifies stay; the others are
         replaced by ``redo_fn(users)``, their phase 1 in FP32."""
-        eps = phase1_error_bound(table, reps_aug)
-        bound = torch.nextafter(theta + eps, torch.full_like(theta, float("inf")))
-        certified = torch.isneginf(theta) | (vals[:, -1] >= bound)
-        redo = torch.nonzero(~certified).flatten()
-        topk_streamed.rechecked_users += int(redo.numel())
-        if redo.numel():
-            vals[redo], ids[redo] = redo_fn(redo)
-        return vals, ids
+        with span("topk.certify"):
+            eps = phase1_error_bound(table, reps_aug)
+            bound = torch.nextafter(theta + eps, torch.full_like(theta, float("inf")))
+            certified = torch.isneginf(theta) | (vals[:, -1] >= bound)
+            redo = torch.nonzero(~certified).flatten()
+            topk_streamed.rechecked_users += int(redo.numel())
+            if redo.numel():
+                with span("topk.recheck"):
+                    vals[redo], ids[redo] = redo_fn(redo)
+            return vals, ids
 
     if single_pass and r > 1:
         # One kernel call streams the whole table once; then the certificate.
-        allsub, gmax = score_submax_groupmax(table, reps_aug, 0, n, sub, group)
-        sids, theta = _submax_winners(allsub, gmax, kk, r)
+        with span("topk.phase1"):
+            allsub, gmax = score_submax_groupmax(table, reps_aug, 0, n, sub, group)
+        with span("topk.winners"):
+            sids, theta = _submax_winners(allsub, gmax, kk, r)
         del allsub, gmax
-        vals, ids = _rescore(table, reps_aug, seen, sids, sub, k_out, phase2_buffer_bytes)
+        with span("topk.phase2"):
+            vals, ids = _rescore(table, reps_aug, seen, sids, sub, k_out, phase2_buffer_bytes)
 
         def redo_submax(redo):
             reps_r = reps_aug[redo].contiguous()
-            allsub, gmax = score_submax_groupmax_fp32(table, reps_r, 0, n, sub, group)
-            sids, _ = _submax_winners(allsub, gmax, kk, r)
+            with span("topk.phase1"):
+                allsub, gmax = score_submax_groupmax_fp32(table, reps_r, 0, n, sub, group)
+            with span("topk.winners"):
+                sids, _ = _submax_winners(allsub, gmax, kk, r)
             del allsub, gmax
-            return _rescore(table, reps_r, seen[redo], sids, sub, k_out, phase2_buffer_bytes)
+            with span("topk.phase2"):
+                return _rescore(table, reps_r, seen[redo], sids, sub, k_out, phase2_buffer_bytes)
 
         return certify(vals, ids, theta, redo_submax)
 
-    # Group maxima only (sub == group): the single pass or the running merge.
+    # Group maxima only (sub == group): the single pass or the running merge,
+    # each K3 call under its own span (:func:`_group_winners`).
     winners = functools.partial(
         _group_winners, table, kk, serve_chunk=serve_chunk, group=group, single_pass=single_pass
     )
-    split = split_reps(reps_aug)  # once for every chunk call
-    gids, theta = winners(u, lambda rows, lo: score_groupmax(rows, reps_aug, lo, n, group, split=split))
+    with span("topk.phase1"):
+        split = split_reps(reps_aug)  # once for every chunk call: K3's prologue
+    with span("topk.winners"):
+        gids, theta = winners(u, lambda rows, lo: score_groupmax(rows, reps_aug, lo, n, group, split=split))
     del split
-    vals, ids = _rescore(table, reps_aug, seen, gids, group, k_out, phase2_buffer_bytes)
+    with span("topk.phase2"):
+        vals, ids = _rescore(table, reps_aug, seen, gids, group, k_out, phase2_buffer_bytes)
 
     def redo_groups(redo):
         reps_r = reps_aug[redo].contiguous()
-        gids, _ = winners(len(redo), lambda rows, lo: score_groupmax_fp32(rows, reps_r, lo, n, group))
-        return _rescore(table, reps_r, seen[redo], gids, group, k_out, phase2_buffer_bytes)
+        with span("topk.winners"):
+            gids, _ = winners(len(redo), lambda rows, lo: score_groupmax_fp32(rows, reps_r, lo, n, group))
+        with span("topk.phase2"):
+            return _rescore(table, reps_r, seen[redo], gids, group, k_out, phase2_buffer_bytes)
 
     return certify(vals, ids, theta, redo_groups)
 
@@ -696,30 +714,31 @@ def topk_streamed_bigseen(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Wide seen lists: chunked dense scoring with a per-chunk seen mask and
     a running top-k merge. Plain PyTorch, correct for any seen width."""
-    n = table.shape[0]
-    dev = table.device
-    u = reps.shape[0]
-    kk = min(k, n)
-    rows = torch.arange(u, device=dev)[:, None].expand_as(seen)
-    offsets = torch.arange(serve_chunk, device=dev)
-    vals = torch.full((u, kk), float("-inf"), device=dev)
-    idx = torch.arange(kk, device=dev).expand(u, kk)  # distinct: an all-masked user
-    for ch in range(-(-n // serve_chunk)):
-        lo = ch * serve_chunk
-        ids = lo + offsets
-        tc = table.index_select(0, ids.clamp(max=n - 1)).to(torch.float32)
-        with fp32_matmul():
-            scores = reps @ tc[:, :-1].T + tc[:, -1]
-        scores.masked_fill_((ids >= n)[None, :], float("-inf"))
-        local = seen - lo
-        hit = (local >= 0) & (local < serve_chunk)  # seen ids inside this chunk
-        scores[rows[hit], local[hit]] = float("-inf")
-        cv, cp = torch.topk(scores, min(kk, serve_chunk), dim=1)
-        mv = torch.cat([vals, cv], dim=1)
-        mi = torch.cat([idx, lo + cp], dim=1)
-        vals, p = torch.topk(mv, kk, dim=1)
-        idx = torch.gather(mi, 1, p)
-    return vals, idx
+    with span("topk.bigseen"):
+        n = table.shape[0]
+        dev = table.device
+        u = reps.shape[0]
+        kk = min(k, n)
+        rows = torch.arange(u, device=dev)[:, None].expand_as(seen)
+        offsets = torch.arange(serve_chunk, device=dev)
+        vals = torch.full((u, kk), float("-inf"), device=dev)
+        idx = torch.arange(kk, device=dev).expand(u, kk)  # distinct: an all-masked user
+        for ch in range(-(-n // serve_chunk)):
+            lo = ch * serve_chunk
+            ids = lo + offsets
+            tc = table.index_select(0, ids.clamp(max=n - 1)).to(torch.float32)
+            with fp32_matmul():
+                scores = reps @ tc[:, :-1].T + tc[:, -1]
+            scores.masked_fill_((ids >= n)[None, :], float("-inf"))
+            local = seen - lo
+            hit = (local >= 0) & (local < serve_chunk)  # seen ids inside this chunk
+            scores[rows[hit], local[hit]] = float("-inf")
+            cv, cp = torch.topk(scores, min(kk, serve_chunk), dim=1)
+            mv = torch.cat([vals, cv], dim=1)
+            mi = torch.cat([idx, lo + cp], dim=1)
+            vals, p = torch.topk(mv, kk, dim=1)
+            idx = torch.gather(mi, 1, p)
+        return vals, idx
 
 
 def _slab_seen(seen: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -1101,15 +1120,18 @@ class ImplicitSequenceModel:
         history's last ``max_sequence_length`` items, final state."""
         t = self.hyper._max_sequence_length
         n = self.hyper._num_items
-        inputs, lengths = _pad_histories(flat, lens, t)
-        if inputs.size and (inputs.min() < 0 or inputs.max() >= n):
-            raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
-        u = len(lens)
-        idx = torch.from_numpy(inputs).to(self.device).reshape(-1)
+        with span("tower.inputs"):
+            inputs, lengths = _pad_histories(flat, lens, t)
+            if inputs.size and (inputs.min() < 0 or inputs.max() >= n):
+                raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
+            u = len(lens)
+            idx = torch.from_numpy(inputs).to(self.device).reshape(-1)
         emb = self._rows(idx)[:, :-1]
         with fp32_matmul():
             hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1))
-        last = torch.from_numpy(lengths - 1).to(self.device)
+        # A blocking copy: it waits for the tower's kernels.
+        with span("tower.inputs"):
+            last = torch.from_numpy(lengths - 1).to(self.device)
         return hidden[torch.arange(u, device=self.device), last]
 
     def user_representation(self, item_ids: Sequence[int]) -> ImplicitUser:
@@ -1154,19 +1176,25 @@ class ImplicitSequenceModel:
             raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
         if not len(histories):
             return ([], np.zeros((0, k), np.float32)) if return_scores else []
-        flat, lens = _flatten(histories)
-        n = self.hyper._num_items
-        if exclude_seen:
-            seen_np = _seen_rows(flat, lens, n, max(int(lens.max()), 1))
-        else:
-            seen_np = np.full((len(lens), 1), n, dtype=np.int64)
-        # Read before the tower is queued: the reading waits for no kernel.
-        budgets = self._serving_budgets(*seen_np.shape)
-        reps = self._representations(flat, lens)
-        seen = torch.from_numpy(seen_np).to(self.device)
-        vals, idx = self._topk(reps, seen, min(k, n), budgets)
-        ids = idx.cpu().numpy().tolist()
-        return (ids, vals.cpu().numpy()) if return_scores else ids
+        with span("recommend_batch"):
+            with span("serve.prepare"):
+                flat, lens = _flatten(histories)
+                n = self.hyper._num_items
+                if exclude_seen:
+                    seen_np = _seen_rows(flat, lens, n, max(int(lens.max()), 1))
+                else:
+                    seen_np = np.full((len(lens), 1), n, dtype=np.int64)
+            # Read before the tower is queued: the reading waits for no kernel.
+            with span("serve.budgets"):
+                budgets = self._serving_budgets(*seen_np.shape)
+            with span("serve.tower"):
+                reps = self._representations(flat, lens)
+            with span("serve.topk"):
+                seen = torch.from_numpy(seen_np).to(self.device)
+                vals, idx = self._topk(reps, seen, min(k, n), budgets)
+            with span("serve.to_host"):
+                ids = idx.cpu().numpy().tolist()
+                return (ids, vals.cpu().numpy()) if return_scores else ids
 
     def _topk(self, reps: torch.Tensor, seen: torch.Tensor, k: int, budgets: Tuple[int, int, int]):
         """The exact top-``k`` of the whole catalog on the ``budgets``
@@ -1182,11 +1210,12 @@ class ImplicitSequenceModel:
         n = self.hyper._num_items
         lo, _ = slab_range(mesh, n)
         vals, ids = topk_slab(route, table, reps, seen, k, lo, n)
-        packed = torch.cat([vals.view(torch.int32).to(torch.int64), ids], dim=1)
-        parts = [
-            (p[:, :k].to(torch.int32).view(torch.float32), p[:, k:]) for p in mesh.all_gather(packed, MODEL_AXIS)
-        ]
-        return merge_topk_parts(parts, k, n)
+        with span("topk.merge"):
+            packed = torch.cat([vals.view(torch.int32).to(torch.int64), ids], dim=1)
+            parts = [
+                (p[:, :k].to(torch.int32).view(torch.float32), p[:, k:]) for p in mesh.all_gather(packed, MODEL_AXIS)
+            ]
+            return merge_topk_parts(parts, k, n)
 
     def _serving_budgets(self, u: int, seen_width: int) -> Tuple[int, int, int]:
         """``(merge, submax, phase2)`` bytes for a batch of ``u`` users with

@@ -1,5 +1,5 @@
-"""Training observability: fit history, a profiler trace and a leveled
-logger.
+"""Observability: fit history, a profiler trace, the serving path's spans
+and a leveled logger.
 
 Counterpart of :mod:`sbr_rs_tpu.utils.metrics`:
 
@@ -7,6 +7,8 @@ Counterpart of :mod:`sbr_rs_tpu.utils.metrics`:
   throughput for the last ``fit`` call (``model.history``).
 * :func:`trace` — a ``torch.profiler`` trace of a region, written for
   TensorBoard or Perfetto (the JAX package's wraps ``jax.profiler``).
+* :func:`span` — a range of the program's own (``sbr.<name>``) in whatever
+  profiler session runs; nothing when none runs. The JAX package has none.
 * :class:`Logger` — minimal leveled stderr logger, configurable via
   ``SBR_LOG`` (``quiet`` | ``info`` | ``debug``).
 """
@@ -22,6 +24,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclasses.dataclass
@@ -87,7 +90,20 @@ def trace(log_dir: str) -> Iterator[None]:
     file (73 of 79 kernels kept after 90 s of matmuls) or to the profiler
     (77 of 79). A fresh process traces them all.
     ``scripts/torch_trace_probe.py`` checks it;
-    ``scripts/torch_trace_probe.py --age`` reproduces it."""
+    ``scripts/torch_trace_probe.py --age`` reproduces it.
+
+    ``with trace(dir): model.recommend_batch(...)`` shows the serving call's
+    stages by name (:func:`span`): ``sbr.recommend_batch`` around
+    ``sbr.serve.prepare`` (histories flattened, seen rows),
+    ``sbr.serve.budgets`` (the card reading and the derived budgets),
+    ``sbr.serve.tower`` (in it ``sbr.tower.inputs``: padding, the id check,
+    the host-to-device copies), ``sbr.serve.topk`` and ``sbr.serve.to_host``.
+    Under ``sbr.serve.topk`` the streamed top-k shows ``sbr.topk.route``,
+    ``sbr.topk.phase1`` (each K4 or K3 call), ``sbr.topk.winners``,
+    ``sbr.topk.phase2``, ``sbr.topk.certify`` (in it ``sbr.topk.recheck``
+    when users run again in FP32) and, on a row-sharded table,
+    ``sbr.topk.merge``; the other routes ``sbr.topk.small`` and
+    ``sbr.topk.bigseen``."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     cuda = torch.cuda.is_available()
@@ -98,6 +114,28 @@ def trace(log_dir: str) -> Iterator[None]:
         yield
         if cuda:
             torch.cuda.synchronize()
+
+
+SPAN_PREFIX = "sbr."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A range named ``sbr.<name>`` in the running ``torch.profiler``
+    session, on the session's clock and nested in the ranges open on the
+    calling thread, or one shared null context when no session runs (a
+    range would cost about a microsecond a call even then). It records
+    only: no synchronisation, no tensor, nothing on the device.
+
+    The range is an operator's (``RecordFunctionFast``), not a user
+    annotation (``record_function``): the profiler copies each user
+    annotation onto the device's timeline, from the first to the last
+    kernel launched inside it, and a reader that takes the device's events
+    by their device (torch 2.11's events carry no activity type) would
+    count the copies as kernels."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
 
 
 _LEVELS = {"quiet": 0, "info": 1, "debug": 2}
