@@ -42,6 +42,16 @@ attention families, one phase per printed line:
    beside P4 on the same inputs) and read from device memory
    (P4, the same tables, the probe's 1688 x 128 table and the 10M/20M
    tables at 16,384 positions x 5), within 1e-5 relative;
+3b. K3's and K4's two 3xTF32 tiles (``ops/topk_kernels.py submax_tile``:
+   table rows on the wgmma's N for narrow rows, on its M past that tile's
+   shared memory), each call's tile checked by its counter, against the
+   plain version within the certificate's eps, K3's group maxima equal to
+   K4's bit for bit: f32 and bf16 rows at cc = 2, 8, 17, 33, 40, 41, the
+   last rows-on-N width and the next, (sub, group) = (8, 16), (16, 128),
+   (32, 128), U = 1, 127, 129 and 4096, slabs off a 16-byte boundary,
+   ragged ends, lo > 0 with the catalog ending inside the call; the error
+   on all-positive inputs against the bound; K4 timed at 50M x 33 (U =
+   4096 and 1) on both tiles and at 10M x 128 x 4096;
 4. the 3xTF32 K4 at the serving shape (10M x 4096) against its plain version
    and timed beside the FP32 K4 on the same inputs; then ``recommend_batch(
    k=10)`` for 4096 users over a 10,000,000-item LSTM-127 catalog
@@ -214,6 +224,7 @@ those lines. Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import hashlib
@@ -820,6 +831,193 @@ def main() -> None:
                 f"kernel at {r['bound_ms'] / ms:.1%} of it{fp32}", flush=True,
             )
 
+    def tol_score(cc):
+        return TOL_SCORE * max(1.0, cc / 128)
+
+    def within_eps(name, got, want, eps):
+        """|got - want| <= eps[u] wherever both are finite (the -inf
+        positions are compared by ``compare``); returns the largest ratio."""
+        both = torch.isfinite(got) & torch.isfinite(want)
+        ratio = float(torch.where(both, (got - want).abs() / eps, torch.zeros_like(got)).max())
+        if not ratio <= 1.0:
+            raise SmokeFailure(f"{name}: an error {ratio:.3f} x the certificate's eps")
+        return ratio
+
+    def k4_rows_on_m(rows, reps, n, sub, group):
+        """K4 on ``rows`` (``lo`` 0) through its C entry point on the
+        rows-on-M tile (the wrapper takes the tile ``submax_tile`` chooses):
+        for timing it at a shape that takes rows on N."""
+        c, cc = rows.shape
+        u = reps.shape[0]
+        scratch = tk._split_reps_scratch(u, cc, dev, 0)
+        smax = torch.empty((tk.groupmax_rows(c, sub), u), device=dev)
+        gmax = torch.empty((tk.groupmax_rows(c, group), u), device=dev)
+        fn = getattr(_build.library(), "sbr_score_submax_tc_bf16" if rows.dtype == torch.bfloat16
+                     else "sbr_score_submax_tc_f32")
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                               ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _build.check(fn(rows.data_ptr(), reps.data_ptr(), scratch.data_ptr(), smax.data_ptr(), gmax.data_ptr(),
+                        c, cc, u, 0, n, sub, group, 0, 0, torch.cuda.current_stream(dev).cuda_stream),
+                     "score_submax_groupmax on rows on M")
+        return smax, gmax
+
+    def k4_tile_phase():
+        """Phase 3b: K3's and K4's two 3xTF32 tiles (rows on the wgmma's N for
+        narrow rows, rows on its M past that tile's shared memory), each call
+        on the tile ``submax_tile`` chooses (checked by its counter), against
+        the plain version within the certificate's eps and tol_score(cc), with
+        K3's group maxima (reps split in the call and by split_reps) equal to
+        K4's bit for bit: f32 and bf16 rows at cc = 2, 8, 17, 33, 40, 41 and
+        each dtype's last rows-on-N width and the next; (sub, group) = (8,
+        16), (16, 128), (32, 128); U = 1, 127, 129 and 4096; slabs that start
+        off a 16-byte boundary, ragged ends, lo > 0 with the catalog ending
+        inside the call, and calls of several row blocks a persistent block.
+        Then the error on all-positive inputs against the stated bound, and
+        K4 timed at the LSTM-32 catalog's shape (50M x 33, U = 4096 and 1) on
+        both tiles, and at 10M x 128 x 4096 (rows on M)."""
+        mark("phase 3b")
+        lib = _build.library()
+        lib.sbr_smem_per_block_optin.restype = ctypes.c_int
+        optin = lib.sbr_smem_per_block_optin()
+        last = {dt: max(cc for cc in range(1, 513) if tk.submax_tile(cc, dt, optin))
+                for dt in (torch.float32, torch.bfloat16)}
+        print(f"phase 3b K3/K4 tiles: opt-in shared memory {optin} B a block; rows on N up to cc = "
+              f"{last[torch.float32]} (f32), {last[torch.bfloat16]} (bf16)", flush=True)
+        seen = dict.fromkeys(tk.TILES, 0)
+
+        def check(label, rows, reps, lo, n, sub, group):
+            cc = rows.shape[1]
+            tile = tk.TILES[tk.submax_tile(cc, rows.dtype, optin)]
+            before = dict(tk.score_submax_groupmax.tile_launches), dict(tk.score_groupmax.tile_launches)
+            smax, gmax = tk.score_submax_groupmax(rows, reps, lo, n, sub, group)
+            k3 = tk.score_groupmax(rows, reps, lo, n, group)
+            k3_split = tk.score_groupmax(rows, reps, lo, n, group, split=tk.split_reps(reps, rows.dtype))
+            for counter, was, calls in ((tk.score_submax_groupmax.tile_launches, before[0], 1),
+                                        (tk.score_groupmax.tile_launches, before[1], 2)):
+                moved = {k: counter[k] - was[k] for k in tk.TILES if counter[k] != was[k]}
+                if moved != {tile: calls}:
+                    raise SmokeFailure(f"K3/K4 {label}: launches by tile {moved}, expected {calls} on {tile}")
+            seen[tile] += 1
+            if not (torch.equal(k3, gmax) and torch.equal(k3_split, gmax)):
+                raise SmokeFailure(f"K3 {label}: not K4's group maxima bit for bit")
+            ps, pg = tk.score_submax_groupmax_plain(rows, reps, lo, n, sub, group)
+            eps = tk.phase1_error_bound(rows, reps)
+            err, ratio = 0.0, 0.0
+            for part, got, want in (("submax", smax, ps), ("groupmax", gmax, pg)):
+                want = tk._pad_to(want, got.shape[0])
+                err = max(err, compare(f"K4 {label} {part}", got, want, tol_score(cc), quiet=True))
+                ratio = max(ratio, within_eps(f"K4 {label} {part}", got, want, eps))
+            print(f"  {tile} {label}: max_abs_err {err:.3e} (tol {tol_score(cc):.0e}), at most {ratio:.4f} x eps; "
+                  f"K3 = K4's group maxima", flush=True)
+            record("score_submax_groupmax", err)
+            record("score_groupmax", err)
+
+        pairs = ((8, 16), (16, 128), (32, 128))
+        users = (1, 127, 129)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            widths = sorted({2, 8, 17, 33, 40, 41, last[dtype], last[dtype] + 1})
+            for i, cc in enumerate(widths):
+                # Every second width over several row blocks a persistent block.
+                c = 100_003 if i % 2 == 0 else 3_001
+                u = users[i % 3]
+                base = torch.randn((c + 8, cc), device=dev, generator=gen).to(dtype)
+                rows = base[3 : 3 + c]  # 3 rows in: off a 16-byte boundary unless 16 | 3 cc x itemsize
+                reps = (torch.randn((u, cc), device=dev, generator=gen) * cc**-0.5).contiguous()
+                for j, (sub, group) in enumerate(pairs):
+                    lo, n = (0, c) if j == 0 else (4096, 4096 + c - 1000 * j)
+                    check(f"{name} cc={cc} c={c} U={u} {sub}/{group} lo={lo} n={n}", rows, reps, lo, n, sub, group)
+            cc = 33
+            base = torch.randn((100_003, cc), device=dev, generator=gen).to(dtype)
+            reps = (torch.randn((USERS, cc), device=dev, generator=gen) * cc**-0.5).contiguous()
+            for sub, group in pairs:
+                check(f"{name} cc={cc} c=100003 U={USERS} {sub}/{group}", base, reps, 0, 100_003, sub, group)
+            del base, rows, reps
+        if not all(seen.values()):
+            raise SmokeFailure(f"phase 3b: a tile never ran ({seen})")
+        # At U = 4096 and cc = 48 both layouts of the split reps hold as many
+        # floats, and f32 rows take rows on M where bf16 rows take rows on N:
+        # K3 refuses the split made for the other dtype.
+        reps = torch.randn((USERS, 48), device=dev, generator=gen).contiguous()
+        for rows_dtype, split_dtype in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+            rows = torch.randn((4096, 48), device=dev, generator=gen).to(rows_dtype)
+            try:
+                tk.score_groupmax(rows, reps, 0, 4096, 128, split=tk.split_reps(reps, split_dtype))
+            except ValueError as e:
+                print(f"  K3 {rows_dtype} rows, a split for {split_dtype} rows: refused ({e})", flush=True)
+            else:
+                raise SmokeFailure(f"K3: a split for {split_dtype} rows taken for {rows_dtype} rows")
+
+        # The bound on the rows-on-N tile: all-positive inputs, one nonzero
+        # row in 16 (as phase 3's check), K4 at sub 16 and K3 at group 16.
+        for cc in (33, 40):
+            for dtype in (torch.float32, torch.bfloat16):
+                c = 32768
+                rows = torch.zeros((c, cc), device=dev)
+                rows[::16] = torch.rand((c // 16, cc), device=dev, generator=gen) * 0.5 + 0.5
+                rows = rows.to(dtype)
+                rp = (torch.rand((4096, cc), device=dev, generator=gen) * 0.5 + 0.5).contiguous()
+                smax, _ = tk.score_submax_groupmax(rows, rp, 0, c, 16, 32)
+                gmax = tk.score_groupmax(rows, rp, 0, c, 16)
+                exact = rows[::16].double() @ rp.double().T
+                scale = rp.double() @ rows.float().abs().amax(dim=0).double()
+                gamma1 = tk.phase1_gamma(cc, dtype, tensor_cores=True) - tk._gamma_fp32(cc)
+                for kernel, got in (("K4", smax), ("K3", gmax)):
+                    ratio = float(((got[: c // 16].double() - exact).abs() / scale).max())
+                    print(f"  {kernel} rows on N cc={cc} {dtype}: largest |s - s_fp64| / (sum |reps| M) "
+                          f"{ratio:.3e}; phase-1 gamma {gamma1:.3e} ({ratio / gamma1:.1%} of it)", flush=True)
+                    if not ratio <= gamma1:
+                        raise SmokeFailure(f"{kernel} rows on N cc={cc}: error {ratio:.3e} above {gamma1:.3e}")
+        del rows, rp, smax, gmax, exact, scale
+        torch.cuda.empty_cache()
+
+        # The LSTM-32 catalog's shape: 50M x 33 f32, U = 4096 (a batch) and
+        # U = 1 (a request), on both tiles; three 131,072-row chunks checked.
+        n50, cc = N_ITEMS_50M, 33
+        table = torch.randn((n50, cc), device=dev, generator=gen) * 0.1
+        for u in (USERS, 1):
+            reps = (torch.randn((u, cc), device=dev, generator=gen) * cc**-0.5).contiguous()
+            reps[:, -1] = 1.0
+            before = tk.score_submax_groupmax.tile_launches["rows_on_n"]
+            smax, gmax = tk.score_submax_groupmax(table, reps, 0, n50, 32, 128)
+            if tk.score_submax_groupmax.tile_launches["rows_on_n"] != before + 1:
+                raise SmokeFailure("K4 at 50M x 33: not on the rows-on-N tile")
+            eps = tk.phase1_error_bound(table, reps)
+            err, ratio = 0.0, 0.0
+            for lo in (0, 25 * SERVE_CHUNK, n50 - n50 % SERVE_CHUNK):
+                ps, pg = tk.score_submax_groupmax_plain(table[lo : lo + SERVE_CHUNK], reps, lo, n50, 32, 128)
+                for part, got, want in (("submax", smax[lo // 32 : lo // 32 + ps.shape[0]], ps),
+                                        ("groupmax", gmax[lo // 128 : lo // 128 + pg.shape[0]], pg)):
+                    err = max(err, compare(f"K4 50M {part} rows {lo}+", got, want, TOL_SCORE, quiet=True))
+                    ratio = max(ratio, within_eps(f"K4 50M {part} rows {lo}+", got, want, eps))
+            if not torch.isneginf(gmax[-(gmax.shape[0] - (n50 + 127) // 128):]).all():
+                raise SmokeFailure("K4 at 50M x 33: pad rows are not -inf")
+            del smax, gmax
+            work = (2.0 * n50 * u * cc, n50 * cc * 4 + u * cc * 4 + 4.0 * u * (n50 // 32 + n50 // 128))
+            ms_n = time_ms(lambda: tk.score_submax_groupmax(table, reps, 0, n50, 32, 128), reps=5)
+            ms_m = time_ms(lambda: k4_rows_on_m(table, reps, n50, 32, 128), reps=5)
+            ms_n2 = time_ms(lambda: tk.score_submax_groupmax(table, reps, 0, n50, 32, 128), reps=5)
+            bound = max(3 * work[0] / PEAK_TF32_FLOPS, work[1] / PEAK_HBM_BYTES) * 1e3
+            yard = max(work[0] / PEAK_TF32_FLOPS, work[1] / PEAK_HBM_BYTES) * 1e3
+            print(f"  K4 {n50} x {cc} f32, U={u}, 32/128: max_abs_err {err:.3e}, at most {ratio:.4f} x eps; rows on N "
+                  f"{ms_n:.3f} / {ms_n2:.3f} ms, rows on M {ms_m:.3f} ms; 3xTF32 bound {bound:.3f} ms "
+                  f"({bound / ms_n:.1%}), the benchmark's k4_roofline bound {yard:.3f} ms ({yard / ms_n:.1%})",
+                  flush=True)
+            del reps, eps
+        del table
+        torch.cuda.empty_cache()
+        # The 10M serving shape (rows on M at cc = 128), as phase 4 times it.
+        table = torch.randn((N_ITEMS, DIM + 1), device=dev, generator=gen) * 0.1
+        reps = (torch.randn((USERS, DIM + 1), device=dev, generator=gen) * (DIM + 1) ** -0.5).contiguous()
+        before = tk.score_submax_groupmax.tile_launches["rows_on_m"]
+        ms = time_ms(lambda: tk.score_submax_groupmax(table, reps, 0, N_ITEMS, 32, 128), reps=3)
+        if tk.score_submax_groupmax.tile_launches["rows_on_m"] != before + 4:
+            raise SmokeFailure("K4 at 10M x 128: not on the rows-on-M tile")
+        print(f"  K4 {N_ITEMS} x {DIM + 1} f32, U={USERS}, 32/128, rows on M: {ms:.1f} ms", flush=True)
+        del table, reps
+        torch.cuda.empty_cache()
+
     # -- phase 3: kernels against their plain versions ----------------------------
     mark("phase 3")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1071,7 +1269,7 @@ def main() -> None:
         fp32 = tk.score_groupmax_fp32(rows, reps, lo, n, group)
         err_fp32 = compare(f"K3 FP32 {label}", fp32, want, TOL_SCORE, quiet=True)
         tc = tk.score_groupmax(rows, reps, lo, n, group)
-        if not torch.equal(tc, tk.score_groupmax(rows, reps, lo, n, group, split=tk.split_reps(reps))):
+        if not torch.equal(tc, tk.score_groupmax(rows, reps, lo, n, group, split=tk.split_reps(reps, rows.dtype))):
             raise SmokeFailure(f"K3 3xTF32 {label}: the pre-split reps give other maxima")
         err = compare(f"K3 3xTF32 {label}", tc, want, tol_score(rows.shape[1]), quiet=True)
         ratio = within_eps(f"K3 3xTF32 {label}", tc, want, tk.phase1_error_bound(rows, reps))
@@ -1090,7 +1288,7 @@ def main() -> None:
     def time_k3(rows, reps, lo, n, group):
         """Both K3 routes and the plain version by CUDA events; the 3xTF32
         route as the merge calls it, with the reps split once."""
-        split = tk.split_reps(reps)
+        split = tk.split_reps(reps, rows.dtype)
         ms = {
             "3xTF32": time_ms(lambda: tk.score_groupmax(rows, reps, lo, n, group, split=split)),
             "FP32": time_ms(lambda: tk.score_groupmax_fp32(rows, reps, lo, n, group)),
@@ -1100,18 +1298,6 @@ def main() -> None:
               + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
               + f" (3xTF32 at {ms['3xTF32'] / ms['FP32']:.1%} of FP32)", flush=True)
         return ms
-
-    def tol_score(cc):
-        return TOL_SCORE * max(1.0, cc / 128)
-
-    def within_eps(name, got, want, eps):
-        """|got - want| <= eps[u] wherever both are finite (the -inf
-        positions are compared by ``compare``); returns the largest ratio."""
-        both = torch.isfinite(got) & torch.isfinite(want)
-        ratio = float(torch.where(both, (got - want).abs() / eps, torch.zeros_like(got)).max())
-        if not ratio <= 1.0:
-            raise SmokeFailure(f"{name}: an error {ratio:.3f} x the certificate's eps")
-        return ratio
 
     def check_k4(label, rows, reps, lo, n, sub, group, timed):
         """Both K4 routes against the plain version: the FP32 kernel within
@@ -1223,6 +1409,7 @@ def main() -> None:
                     raise SmokeFailure(f"{kernel} 3xTF32 cc={cc} {name}: error {ratio:.3e} above its bound {gamma1:.3e}")
     del rows, rp, smax, gmax, exact, scale
     torch.cuda.empty_cache()
+    k4_tile_phase()
 
     def check_k5(label, rows, reps, lo, col_lo, n, timed):
         """K5 against its plain version: targets are real row scores plus
@@ -2471,6 +2658,13 @@ def main() -> None:
             "launches": launches[name], **r, "launches_by_path": launches_by_path[name],
         })
     print(json.dumps({"kernels": kernels}))
+    print_contract_line()
+
+
+def print_contract_line():
+    """The last line of a run whose phases all passed."""
+    import torch
+
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

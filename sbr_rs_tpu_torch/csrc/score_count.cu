@@ -143,13 +143,10 @@ int launch(const RowT* rows, const float* reps, float* tiles, const float* targe
 
 }  // namespace
 
-// Floats of the scratch that sbr_score_count_* and sbr_score_submax_tc_*
-// take for u users of width cc (score_tile.cuh: the split reps).
-extern "C" long long sbr_score_tile_scratch_floats(int u, int cc) { return scratch_floats(u, cc); }
-
 // rows [c, cc] (row-major, contiguous), reps [u, cc] f32, scratch
-// (sbr_score_tile_scratch_floats(u, cc) floats, 16-byte aligned: the TF32
-// hi and lo of reps, written here), targets [u] f32, probe [u] int64,
+// (score_tile.cuh scratch_floats(u, cc) floats, which
+// sbr_score_submax_scratch_floats(u, cc, 0) returns, 16-byte aligned: the
+// TF32 hi and lo of reps, written here), targets [u] f32, probe [u] int64,
 // counts [u] int32 (zero on entry), probe_out [u] f32.
 extern "C" int sbr_score_count_f32(const float* rows, const float* reps, float* scratch,
                                    const float* targets, const int64_t* probe, int* counts,

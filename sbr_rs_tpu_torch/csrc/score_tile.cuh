@@ -1,10 +1,22 @@
-// The 3xTF32 catalog-scoring tile shared by score_count.cu (K5, the rank
-// count) and score_submax_tc.cu (K4, the subgroup and group maxima): table
-// rows [c, cc] (f32, or bf16 exact in TF32) against bias-augmented user
-// representations reps [u, cc] (f32), on Hopper's tensor cores
-// (wgmma.m64n128k8 TF32 with the split of tf32x3.cuh). The two kernels
-// differ only in what their epilogue does with each [256 rows x 128 users]
-// score tile.
+// The 3xTF32 catalog-scoring tiles: table rows [c, cc] (f32, or bf16 exact
+// in TF32) against bias-augmented user representations reps [u, cc] (f32),
+// on Hopper's tensor cores (wgmma.m64n128k8 TF32 with the split of
+// tf32x3.cuh). Two tiles:
+//
+// * Rows on M, run() below, any width: shared by score_count.cu (K5, the
+//   rank count) and score_submax_tc.cu (K4 and K3, the subgroup and group
+//   maxima), which differ only in what their epilogue does with each [256
+//   rows x 128 users] score tile. A thread holds 2 rows x 64 users, so a
+//   reduction over rows crosses lanes and warps (shared memory and a block
+//   barrier a tile), and the rows are split again for every user tile.
+// * Rows on N, narrow::run() at the end, for K4 and K3 on narrow rows
+//   (where its shared memory fits the card: cc <= 40 in f32, <= 64 in
+//   bf16 on the H100): users on the wgmma's M, rows on its N, so a thread
+//   holds 2 users x 32 rows and reduces rows in registers; the rows are
+//   split once a block. Its notes are there and in score_submax_tc.cu. K5
+//   keeps rows on M: its counts meet across rows in any case.
+//
+// The rows-on-M tile:
 //
 // * split_reps_kernel, once per call, splits reps into TF32 hi and lo and
 //   lays them out, zero-padded past u and cc, as one contiguous 16 KB block
@@ -109,30 +121,38 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
   } while (!done);
 }
-// One reps slot, kSlotB contiguous bytes, by the bulk-copy engine; its
-// arrival completes the slot's full barrier.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint64_t* full) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(tf32x3::smem_addr(full)),
-               "r"(kSlotB)
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// by the bulk-copy engine; their arrival completes `bar`'s phase, which
+// this call arrives on.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(tf32x3::smem_addr(bar)),
+               "r"(bytes)
                : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(tf32x3::smem_addr(dst)),
-      "l"(src), "r"(kSlotB), "r"(tf32x3::smem_addr(full))
+      "l"(src), "r"(bytes), "r"(tf32x3::smem_addr(bar))
       : "memory");
 }
+// One reps slot, kSlotB contiguous bytes; its arrival completes the slot's
+// full barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint64_t* full) {
+  bulk_copy(dst, src, kSlotB, full);
+}
 
-// reps [u, cc] -> the TF32 hi and lo of every (user tile, k-slice) in the
-// slot layout above, zero past u and cc.
+// reps [u, cc] -> the TF32 hi and lo of every (tile of bn users, k-slice
+// of kc) in the slot layout above (bn = BN, kc = KC: run()'s; the
+// rows-on-N tile below takes bn = 64 and one slice of the whole depth),
+// zero past u and cc.
 static __global__ void split_reps_kernel(const float* __restrict__ reps, float* __restrict__ tiles,
-                                  int u, int cc, int n_k, int64_t count) {
+                                         int u, int cc, int kc, int bn, int n_k, int64_t count) {
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int within = static_cast<int>(i % (KC * BN));  // [k chunk][user][4]
-    const int half = static_cast<int>(i / (KC * BN) % 2);
-    const int64_t slice = i / (2 * KC * BN);
-    const int user = static_cast<int>(slice / n_k) * BN + within / 4 % BN;
-    const int k = static_cast<int>(slice % n_k) * KC + within / (4 * BN) * 4 + within % 4;
+    const int within = static_cast<int>(i % (kc * bn));  // [k chunk][user][4]
+    const int half = static_cast<int>(i / (kc * bn) % 2);
+    const int64_t slice = i / (2 * kc * bn);
+    const int user = static_cast<int>(slice / n_k) * bn + within / 4 % bn;
+    const int k = static_cast<int>(slice % n_k) * kc + within / (4 * bn) * 4 + within % 4;
     const float x = user < u && k < cc ? __ldg(reps + static_cast<int64_t>(user) * cc + k) : 0.0f;
     uint32_t hi, lo;
     tf32x3::split(x, hi, lo);
@@ -140,20 +160,22 @@ static __global__ void split_reps_kernel(const float* __restrict__ reps, float* 
   }
 }
 
-// Floats of the split reps for u users of width cc.
-inline long long scratch_floats(int u, int cc) {
-  return static_cast<long long>((u + BN - 1) / BN) * ((cc + KC - 1) / KC) * (kSlotB / 4);
+// Floats of the split reps for u users of width cc, in tiles of bn users
+// and slices of kc.
+inline long long scratch_floats(int u, int cc, int kc = KC, int bn = BN) {
+  return static_cast<long long>((u + bn - 1) / bn) * ((cc + kc - 1) / kc) * 2 * kc * bn;
 }
 
-// Launches split_reps_kernel into tiles (scratch_floats(u, cc) floats);
-// returns cudaErrorMisalignedAddress when tiles is not 16-byte aligned (the
-// bulk copies need it), else cudaSuccess.
-inline int split_reps(const float* reps, float* tiles, int u, int cc, cudaStream_t stream) {
-  const long long count = scratch_floats(u, cc);
+// Launches split_reps_kernel into tiles (scratch_floats(u, cc, kc, bn)
+// floats); returns cudaErrorMisalignedAddress when tiles is not 16-byte
+// aligned (the bulk copies need it), else cudaSuccess.
+inline int split_reps(const float* reps, float* tiles, int u, int cc, cudaStream_t stream, int kc = KC,
+                      int bn = BN) {
+  const long long count = scratch_floats(u, cc, kc, bn);
   if (count > 0) {
     const long long blocks = (count + 255) / 256;
     split_reps_kernel<<<static_cast<unsigned int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-        reps, tiles, u, cc, (cc + KC - 1) / KC, count);
+        reps, tiles, u, cc, kc, bn, (cc + kc - 1) / kc, count);
   }
   return reinterpret_cast<uintptr_t>(tiles) % 16 != 0 ? static_cast<int>(cudaErrorMisalignedAddress)
                                                         : static_cast<int>(cudaSuccess);
@@ -333,5 +355,238 @@ __device__ __forceinline__ void run(const RowT* __restrict__ rows, const float* 
     }
   }
 }
+
+// The rows-on-N tile, for narrow rows: users on the wgmma's M (A, the split
+// reps, from shared memory), table rows on its N (B, split once a block in
+// shared memory). A persistent block walks row blocks of kRows rows; for
+// each, warpgroup wg scores rows [128 (wg & 1), + 128) of it against user
+// tiles (wg >> 1), + 2, ... of kUsers users, so a pair of warpgroups shares
+// each reps tile (a ring of kSlots, refilled by the pair's first thread
+// while its wgmmas run). Where both pairs take as many tiles, they take
+// turns to issue a tile's wgmmas (two mbarriers), so one pair's epilogue
+// runs under the other's tensor work (4-6 % of K4 at 50M x 33, the H100).
+// The next row block's raw rows arrive by one bulk copy into a stage while
+// the current one is scored, and each thread splits 4 k of one row at a
+// time into 16-byte stores (split element by element, a 1-user call at 50M
+// x 33 took 7.4 ms; four at a time, 4.7 ms). See score_submax_tc.cu.
+namespace narrow {
+
+constexpr int kRows = BM;      // table rows of a block's step: a warpgroup pair's two halves
+constexpr int kHalf = 128;     // rows a warpgroup scores: the wgmma's N
+constexpr int kUsers = 64;     // users of a tile: the wgmma's M
+constexpr int kSlots = 2;      // reps tiles in flight for each pair
+constexpr int kBarBytes = 96;  // 2 pairs x kSlots x (full, empty), the rows', 2 turns; 16-byte rounded
+constexpr int kLboA = kUsers * 16;  // bytes between 4-k chunks of a reps tile: 1024
+constexpr int kLboB = kRows * 16;   // of the block's rows: 4096
+
+__host__ __device__ constexpr int depth(int cc) { return (cc + 7) / 8 * 8; }  // whole k-steps
+// Shared memory, in this order: the block's rows split (hi, and lo for f32
+// rows; bf16 is exact in TF32) in wgmma's K-major layout, 2 x kSlots reps
+// tiles, the raw rows of the next block (+16 bytes: a misaligned start),
+// kBarBytes of barriers. The launch takes the sum from its caller
+// (ops/topk_kernels.py rows_on_n_smem_bytes).
+template <typename RowT>
+__host__ __device__ constexpr size_t rows_bytes(int cc) {
+  return (sizeof(RowT) == 2 ? 1 : 2) * static_cast<size_t>(kRows) * depth(cc) * 4;
+}
+__host__ __device__ constexpr size_t slot_bytes(int cc) { return 2 * static_cast<size_t>(kUsers) * depth(cc) * 4; }
+template <typename RowT>
+__host__ __device__ constexpr size_t stage_bytes(int cc) {
+  return static_cast<size_t>(kRows) * cc * sizeof(RowT) + 16;
+}
+
+// The split reps of this tile: one contiguous [hi | lo] block of
+// slot_bytes(cc) per tile of kUsers users, the whole depth in one slice.
+inline long long scratch_floats(int u, int cc) { return score_tile::scratch_floats(u, cc, depth(cc), kUsers); }
+inline int split(const float* reps, float* tiles, int u, int cc, cudaStream_t stream) {
+  return split_reps(reps, tiles, u, cc, stream, depth(cc), kUsers);
+}
+
+// Scores of rows [0, c) against the users of the split reps `tiles`, with
+// gridDim.x persistent blocks of kThreads. After each user tile the
+// warpgroup, on its own, calls epilogue(row0, tile, acc): its rows are
+// [row0, row0 + 128), and acc holds its 64 accumulators, users
+// tile * kUsers + 16 (warp % 4) + g (+ 8) at acc[4 j + {0, 1}] ({2, 3}),
+// rows row0 + 8 j + 2 t (+ 1) (tf32x3.cuh's layout with M and N swapped
+// in meaning). The next tile's first wgmma overwrites acc. No barrier
+// joins the warpgroups inside a row block; two __syncthreads a row block
+// hand the shared rows over.
+template <typename RowT, typename Epilogue>
+__device__ __forceinline__ void run(const RowT* __restrict__ rows, const float* __restrict__ tiles, int64_t c,
+                                    int cc, int u, unsigned char* smem, Epilogue&& epilogue) {
+  using Tile = RowTile<RowT>;
+  constexpr bool kExact = sizeof(RowT) == 2;  // bf16 rows: lo = 0, 2 products a term
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int half = wg & 1;
+  const int pair = wg >> 1;
+  const int ccp = depth(cc);
+  const int n_ks = ccp / 8;
+  const int n_tiles = (u + kUsers - 1) / kUsers;
+  const int my_tiles = (n_tiles - pair + 1) / 2;  // tiles pair, pair + 2, ...
+  const int64_t n_blocks = (c + kRows - 1) / kRows;
+  const int64_t my_blocks =
+      static_cast<int64_t>(blockIdx.x) < n_blocks ? (n_blocks - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int64_t my_items = my_blocks * my_tiles;  // this pair's reps tiles, in order
+  const size_t part = static_cast<size_t>(kRows) * ccp * 4;  // the rows' hi (or lo)
+  const size_t slot_size = slot_bytes(cc);
+  unsigned char* ring = smem + rows_bytes<RowT>(cc);
+  unsigned char* stage = ring + 2 * kSlots * slot_size;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + stage_bytes<RowT>(cc));  // [pair][slot]
+  uint64_t* empty = full + 2 * kSlots;
+  uint64_t* rows_full = empty + 2 * kSlots;
+  uint64_t* turn = rows_full + 1;  // [pair]: the other pair has issued its tile
+  // Where both pairs take as many tiles, they take turns to issue a tile's
+  // wgmmas, so one pair's epilogue runs under the other's tensor work.
+  const bool alternate = n_tiles % 2 == 0;
+  uint64_t* my_full = full + pair * kSlots;
+  uint64_t* my_empty = empty + pair * kSlots;
+  unsigned char* my_ring = ring + pair * kSlots * slot_size;
+  const bool producer = tid == 256 * pair;  // the first thread of the pair's half-0 warpgroup
+
+  // Item `item` of the pair: user tile pair + 2 (item % my_tiles), into its slot.
+  auto load_item = [&](int64_t item) {
+    const int s = static_cast<int>(item % kSlots);
+    const int64_t tile = pair + 2 * (item % my_tiles);
+    bulk_copy(my_ring + s * slot_size, tiles + tile * static_cast<int64_t>(slot_size / 4),
+              static_cast<uint32_t>(slot_size), my_full + s);
+  };
+  // Row block rb's bytes [s, e) of the table, and their 16-byte-aligned
+  // middle [a, b) that one bulk copy brings into the stage.
+  auto span = [&](int64_t rb, uintptr_t& s, uintptr_t& a, uintptr_t& b, int& count) {
+    const int64_t r0 = rb * kRows;
+    count = static_cast<int>((c - r0 < kRows ? c - r0 : kRows) * cc);
+    s = reinterpret_cast<uintptr_t>(rows + r0 * cc);
+    a = (s + 15) & ~static_cast<uintptr_t>(15);
+    b = (s + static_cast<uintptr_t>(count) * sizeof(RowT)) & ~static_cast<uintptr_t>(15);
+  };
+  auto fetch_rows = [&](int64_t rb) {
+    uintptr_t s, a, b;
+    int count;
+    span(rb, s, a, b, count);
+    if (b > a)
+      bulk_copy(stage + (a - (s & ~static_cast<uintptr_t>(15))), reinterpret_cast<const void*>(a),
+                static_cast<uint32_t>(b - a), rows_full);
+    else
+      mbar_arrive(rows_full);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * kSlots; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2);  // the pair's two warpgroups
+    }
+    mbar_init(rows_full, 1);
+    mbar_init(turn, 8);  // the other pair's 8 warps
+    mbar_init(turn + 1, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Zeros in rows past c.
+  for (size_t i = tid; i < rows_bytes<RowT>(cc) / 16; i += kThreads)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0 && my_blocks > 0) fetch_rows(blockIdx.x);
+  if (producer)
+    for (int64_t i = 0; i < kSlots && i < my_items; ++i) load_item(i);
+
+  const uint64_t b_hi = tf32x3::smem_desc(smem + half * (kHalf / 8) * 128, kLboB, 128);
+  const uint64_t b_lo = b_hi + (part >> 4);  // descriptors count addresses in 16-byte units
+  float acc[64];
+  int64_t item = 0;
+  for (int64_t j = 0; j < my_blocks; ++j) {
+    const int64_t rb = blockIdx.x + j * gridDim.x;
+    // The staged rows, split into hi and lo in the K-major layout: [k chunk]
+    // [row / 8][row % 8][k % 4], a thread per (chunk, row): four loads of
+    // the raw row (a stride of cc words across the warp: no bank
+    // conflicts) and one 16-byte store of each part (zeros past cc). Where
+    // the aligned copy left out the block's head or tail bytes, those come
+    // from device memory.
+    mbar_wait(rows_full, static_cast<int>(j & 1));
+    {
+      uintptr_t s, a, b;
+      int count;
+      span(rb, s, a, b, count);
+      const RowT* staged = reinterpret_cast<const RowT*>(stage + (s & 15));
+      const RowT* src = rows + rb * kRows * cc;
+      const bool whole = a == s && b == s + static_cast<uintptr_t>(count) * sizeof(RowT);
+      const int n_rows = count / cc;
+      float4* dst = reinterpret_cast<float4*>(smem);
+      for (int i = tid; i < ccp / 4 * kRows; i += kThreads) {
+        const int m = i % kRows;
+        if (m >= n_rows) continue;
+        const int k0 = i / kRows * 4;
+        float x[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int e = m * cc + k0 + q;
+          const uintptr_t at = s + static_cast<uintptr_t>(e) * sizeof(RowT);
+          x[q] = k0 + q >= cc ? 0.0f
+                 : whole || (at >= a && at < b) ? Tile::get(staged, e)
+                                                 : Tile::get(src, e);
+        }
+        if constexpr (kExact) {
+          dst[i] = make_float4(x[0], x[1], x[2], x[3]);
+        } else {
+          uint32_t hi[4], lo[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) tf32x3::split(x[q], hi[q], lo[q]);
+          dst[i] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]), __uint_as_float(hi[2]),
+                               __uint_as_float(hi[3]));
+          dst[part / 16 + i] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]), __uint_as_float(lo[2]),
+                                           __uint_as_float(lo[3]));
+        }
+      }
+    }
+    // The rows are the tensor cores' to read; the stage is the copy engine's.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0 && j + 1 < my_blocks) fetch_rows(rb + gridDim.x);
+
+    for (int q = 0; q < my_tiles; ++q, ++item) {
+      const int s = static_cast<int>(item % kSlots);
+      mbar_wait(my_full + s, static_cast<int>((item / kSlots) & 1));
+      if (alternate && (pair == 1 || item > 0))
+        mbar_wait(turn + pair, static_cast<int>((pair == 0 ? item - 1 : item) & 1));
+      __syncwarp();  // wgmma's .aligned instructions need the warp converged
+      const uint64_t a_hi = tf32x3::smem_desc(my_ring + s * slot_size, kLboA, 128);
+      const uint64_t a_lo = a_hi + (slot_size / 2 >> 4);
+      tf32x3::wgmma_fence();
+      // The cross products first, then hi * hi (tf32x3.cuh); the tile's
+      // first product overwrites the accumulators, so they are dead from
+      // the last epilogue's reads to here.
+      if constexpr (kExact) {
+        tf32x3::wgmma_m64n128k8_ss_first(acc, a_lo, b_hi);
+      } else {
+        tf32x3::wgmma_m64n128k8_ss_first(acc, a_hi, b_lo);
+        tf32x3::wgmma_m64n128k8_ss(acc, a_lo, b_hi);
+      }
+      tf32x3::wgmma_m64n128k8_ss(acc, a_hi, b_hi);
+      for (int ks = 1; ks < n_ks; ++ks) {
+        const uint64_t da = 2 * ks * kLboA >> 4;
+        const uint64_t db = 2 * ks * kLboB >> 4;
+        if constexpr (!kExact) tf32x3::wgmma_m64n128k8_ss(acc, a_hi + da, b_lo + db);
+        tf32x3::wgmma_m64n128k8_ss(acc, a_lo + da, b_hi + db);
+        tf32x3::wgmma_m64n128k8_ss(acc, a_hi + da, b_hi + db);
+      }
+      tf32x3::wgmma_commit();
+      if (alternate && tid % 32 == 0) mbar_arrive(turn + (1 - pair));
+      // While they run: the slot of the previous item, once both warpgroups
+      // have released it, takes the item kSlots past it.
+      if (producer && item >= 1 && item - 1 + kSlots < my_items) {
+        mbar_wait(my_empty + (item - 1) % kSlots, static_cast<int>(((item - 1) / kSlots) & 1));
+        load_item(item - 1 + kSlots);
+      }
+      __syncwarp();
+      tf32x3::wgmma_wait_all();
+      tf32x3::keep_in_registers(acc);
+      if (tid % 128 == 0) mbar_arrive(my_empty + s);
+      epilogue(rb * kRows + half * kHalf, pair + 2 * q, acc);
+    }
+    __syncthreads();  // every warpgroup is done with the block's rows
+  }
+}
+
+}  // namespace narrow
 
 }  // namespace score_tile

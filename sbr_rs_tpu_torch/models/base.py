@@ -688,7 +688,7 @@ def topk_streamed(
         _group_winners, table, kk, serve_chunk=serve_chunk, group=group, single_pass=single_pass
     )
     with span("topk.phase1"):
-        split = split_reps(reps_aug)  # once for every chunk call: K3's prologue
+        split = split_reps(reps_aug, table.dtype)  # once for every chunk call: K3's prologue
     with span("topk.winners"):
         gids, theta = winners(u, lambda rows, lo: score_groupmax(rows, reps_aug, lo, n, group, split=split))
     del split

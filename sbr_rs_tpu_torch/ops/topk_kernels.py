@@ -24,6 +24,12 @@ inside the call (``i < C``), and only group maxima are kept:
   (``csrc/score_groupmax.cu``), which the serving path runs again for the
   users whose top-k the bound cannot certify.
 
+The 3xTF32 kernels take one of two score tiles, chosen by
+:func:`submax_tile` from the row width, the row dtype and the card's
+opt-in shared memory: table rows on the wgmma's N axis for narrow rows
+(the LSTM-32 catalog's 33 floats), else on its M axis. Each wrapper's
+``tile_launches`` counts its launches by tile (:data:`TILES`).
+
 :func:`phase1_error_bound` bounds how far the 3xTF32 scores may lie from
 the FP32 scores that phase 2 recomputes (both 3xTF32 kernels do the same
 arithmetic). All four return :func:`groupmax_rows` rows, the rows past ``C`` all
@@ -47,7 +53,8 @@ the plain versions are FP32.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,6 +62,54 @@ from . import _build
 
 _R_BLK = 2048  # output rows pad to this many table rows (the TPU row block)
 _WIDTHS = (8, 16, 32, 64, 128)
+# K3's and K4's two score tiles (``csrc/score_submax_tc.cu``), by the number
+# their C entry points take: table rows on the wgmma's M axis (any width),
+# or on its N axis (narrow rows, where its shared memory fits).
+TILES = ("rows_on_m", "rows_on_n")
+
+
+def rows_on_n_smem_bytes(cc: int, itemsize: int) -> int:
+    """Shared memory of a rows-on-N block for rows of ``cc`` elements of
+    ``itemsize`` bytes, the one count of it: the C entry points launch the
+    tile with this many bytes, the sum of the regions ``narrow::run`` in
+    ``csrc/score_tile.cuh`` lays out. The block's 256 rows split into TF32
+    hi and lo (hi alone for bf16, exact in TF32) at depth
+    ``round_up(cc, 8)``, two 64-user tiles of split reps for each of its
+    two warpgroup pairs, the next block's raw rows and 16 bytes more, and
+    96 bytes of barriers."""
+    depth = -(-cc // 8) * 8
+    rows = (1 if itemsize == 2 else 2) * 256 * depth * 4
+    ring = 2 * 2 * (2 * 64 * depth * 4)
+    return rows + ring + 256 * cc * itemsize + 16 + 96
+
+
+def submax_tile(cc: int, rows_dtype: torch.dtype, smem_optin: int) -> int:
+    """The tile (an index of :data:`TILES`) that K3 and K4 take for rows of
+    width ``cc`` and ``rows_dtype`` on a card whose blocks may opt in to
+    ``smem_optin`` bytes of shared memory: rows on N where its shared
+    memory fits, else rows on M. On the H100 (232,448 bytes) rows on N
+    take ``cc <= 40`` in f32 and ``cc <= 64`` in bf16."""
+    return int(rows_on_n_smem_bytes(cc, rows_dtype.itemsize) <= smem_optin)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_tile(cc: int, rows_dtype: torch.dtype, dev: torch.device) -> Tuple[int, int]:
+    """``(tile, smem)`` on the card ``dev``: :func:`submax_tile`, and the
+    shared memory a block of rows on N takes (0 for rows on M)."""
+    lib = _build.library()
+    lib.sbr_smem_per_block_optin.argtypes = []
+    lib.sbr_smem_per_block_optin.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        tile = submax_tile(cc, rows_dtype, lib.sbr_smem_per_block_optin())
+    return tile, rows_on_n_smem_bytes(cc, rows_dtype.itemsize) if tile else 0
+
+
+class SplitReps(NamedTuple):
+    """:func:`split_reps`'s result: the split reps and the tile (an index
+    of :data:`TILES`) whose layout they are in."""
+
+    scratch: torch.Tensor
+    tile: int
 
 
 def groupmax_supported(c: int, cc: int, u: int, group: int) -> bool:
@@ -181,18 +236,18 @@ def _groupmax_plain(chunk_rows, reps_aug, lo, n, group):
     return _pad_to(out, groupmax_rows(chunk_rows.shape[0], group))
 
 
-def _scratch_floats(u: int, cc: int) -> int:
-    """Floats of the split reps of ``u`` users of width ``cc`` (the layout
-    of ``csrc/score_tile.cuh``)."""
+def _scratch_floats(u: int, cc: int, tile: int) -> int:
+    """Floats of the split reps of ``u`` users of width ``cc`` in the layout
+    of ``tile`` (``csrc/score_tile.cuh``; rows on M is K5's too)."""
     lib = _build.library()
-    lib.sbr_score_tile_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.sbr_score_tile_scratch_floats.restype = ctypes.c_longlong
-    return lib.sbr_score_tile_scratch_floats(u, cc)
+    lib.sbr_score_submax_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.sbr_score_submax_scratch_floats.restype = ctypes.c_longlong
+    return lib.sbr_score_submax_scratch_floats(u, cc, tile)
 
 
-def _split_reps_scratch(u: int, cc: int, dev: torch.device) -> torch.Tensor:
+def _split_reps_scratch(u: int, cc: int, dev: torch.device, tile: int = 0) -> torch.Tensor:
     """The scratch a 3xTF32 kernel splits ``reps_aug [u, cc]`` into."""
-    return torch.empty((_scratch_floats(u, cc),), dtype=torch.float32, device=dev)
+    return torch.empty((_scratch_floats(u, cc, tile),), dtype=torch.float32, device=dev)
 
 
 def _check_reps(reps_aug, u, cc, dev, name) -> None:
@@ -205,10 +260,13 @@ def _check_reps(reps_aug, u, cc, dev, name) -> None:
         raise ValueError(f"{name}: reps_aug must be contiguous")
 
 
-def split_reps(reps_aug: torch.Tensor) -> Optional[torch.Tensor]:
+def split_reps(reps_aug: torch.Tensor, rows_dtype: torch.dtype) -> Optional[SplitReps]:
     """``reps_aug [U, Cc]`` split into TF32 hi and lo parts in the layout
-    of ``csrc/score_tile.cuh``, for :func:`score_groupmax`'s ``split``:
-    the running merge splits once per batch, not once per chunk call. CPU
+    of the tile :func:`score_groupmax` takes for rows of ``rows_dtype``
+    (:func:`submax_tile`; ``csrc/score_tile.cuh``), with that tile
+    (:class:`SplitReps`; :func:`score_groupmax` refuses it for rows that
+    take the other), for its ``split``: the
+    running merge splits once per batch, not once per chunk call. CPU
     tensors need no split (the plain version reads ``reps_aug``) and get
     ``None``. The split is K3's prologue, as it is inside K4's and K5's
     calls, so it has no launch counter of its own."""
@@ -216,15 +274,32 @@ def split_reps(reps_aug: torch.Tensor) -> Optional[torch.Tensor]:
         return None
     u, cc = reps_aug.shape
     _check_reps(reps_aug, u, cc, reps_aug.device, "split_reps")
-    scratch = _split_reps_scratch(u, cc, reps_aug.device)
+    tile, _ = _card_tile(cc, rows_dtype, reps_aug.device)
+    scratch = _split_reps_scratch(u, cc, reps_aug.device, tile)
     fn = _build.library().sbr_score_tile_split
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(reps_aug.device):
         stream = torch.cuda.current_stream(reps_aug.device).cuda_stream
-        status = fn(reps_aug.data_ptr(), scratch.data_ptr(), u, cc, stream)
+        status = fn(reps_aug.data_ptr(), scratch.data_ptr(), u, cc, tile, stream)
     _build.check(status, "split_reps")
-    return scratch
+    return SplitReps(scratch, tile)
+
+
+def _check_split(split, u: int, cc: int, dev: torch.device, tile: int, rows_dtype: torch.dtype) -> None:
+    """Refuse a ``split`` that is not :func:`split_reps` of float32
+    ``[u, cc]`` reps on ``dev`` in the layout of ``tile``, the tile that
+    rows of ``rows_dtype`` take. The two layouts may hold as many floats
+    (both ``2 u cc`` where 128 divides ``u`` and 16 divides ``cc``), so the
+    tile is checked before the size."""
+    what = f"score_groupmax: split is not split_reps of float32 [{u}, {cc}] reps on {dev} for {rows_dtype} rows"
+    if not isinstance(split, SplitReps):
+        raise ValueError(f"{what}: got {type(split).__name__}")
+    if split.tile != tile:
+        raise ValueError(f"{what}: it is laid out for {TILES[split.tile]}, these rows take {TILES[tile]}")
+    s = split.scratch
+    if s.device != dev or s.dtype != torch.float32 or s.ndim != 1 or s.numel() != _scratch_floats(u, cc, tile):
+        raise ValueError(what)
 
 
 def score_groupmax(
@@ -233,14 +308,15 @@ def score_groupmax(
     lo: int,
     n: int,
     group: int,
-    split: Optional[torch.Tensor] = None,
+    split: Optional[SplitReps] = None,
 ) -> torch.Tensor:
     """``[groupmax_rows(C, group), U]`` group maxima (module docstring).
     ``chunk_rows`` may be the whole catalog (``lo = 0``) or any slab of it.
     On the card the scores are 3xTF32 (``csrc/score_submax_tc.cu``), within
     :func:`phase1_error_bound` of the FP32 scores, from ``split``:
-    :func:`split_reps` of these ``reps_aug``, done here when not given.
-    ``score_groupmax.launches`` counts the kernel's launches."""
+    :func:`split_reps` of these ``reps_aug`` for rows of this dtype, done
+    here when not given. ``score_groupmax.launches`` counts the kernel's
+    launches, ``score_groupmax.tile_launches`` them by tile."""
     c, cc = chunk_rows.shape
     u = reps_aug.shape[0]
     if not _check_groupmax(chunk_rows, reps_aug, group, "score_groupmax"):
@@ -255,24 +331,26 @@ def score_groupmax(
     _check_reps(reps_aug, u, cc, dev, "score_groupmax")
     if not chunk_rows.is_contiguous():
         raise ValueError("score_groupmax: rows must be contiguous")
+    tile, smem = _card_tile(cc, chunk_rows.dtype, dev)
     if split is None:
-        split = split_reps(reps_aug)
-    elif (split.device != dev or split.dtype != torch.float32 or split.ndim != 1
-          or split.numel() != _scratch_floats(u, cc)):
-        raise ValueError(f"score_groupmax: split is not split_reps of float32 [{u}, {cc}] reps on {dev}")
+        split = split_reps(reps_aug, chunk_rows.dtype)
+    else:
+        _check_split(split, u, cc, dev, tile, chunk_rows.dtype)
     gmax = torch.empty((groupmax_rows(c, group), u), dtype=torch.float32, device=dev)
     fn.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(
-            chunk_rows.data_ptr(), split.data_ptr(), gmax.data_ptr(), c, cc, u, int(lo), int(n), group, stream,
+            chunk_rows.data_ptr(), split.scratch.data_ptr(), gmax.data_ptr(), c, cc, u, int(lo), int(n), group,
+            tile, smem, stream,
         )
     _build.check(status, "score_groupmax")
     score_groupmax.launches += 1
+    score_groupmax.tile_launches[TILES[tile]] += 1
     return gmax
 
 
@@ -317,7 +395,8 @@ def score_submax_groupmax(
     the card the scores are 3xTF32 (``csrc/score_submax_tc.cu``; a pre-pass
     in the same call splits ``reps_aug`` into a scratch buffer), within
     :func:`phase1_error_bound` of the FP32 scores phase 2 computes.
-    ``score_submax_groupmax.launches`` counts the calls that launch it."""
+    ``score_submax_groupmax.launches`` counts the calls that launch it,
+    ``score_submax_groupmax.tile_launches`` them by tile."""
     c, cc = chunk_rows.shape
     u = reps_aug.shape[0]
     _check_submax(chunk_rows, reps_aug, sub, group, "score_submax_groupmax")
@@ -333,22 +412,24 @@ def score_submax_groupmax(
     _check_reps(reps_aug, u, cc, dev, "score_submax_groupmax")
     if not chunk_rows.is_contiguous():
         raise ValueError("score_submax_groupmax: rows must be contiguous")
-    scratch = _split_reps_scratch(u, cc, dev)
+    tile, smem = _card_tile(cc, chunk_rows.dtype, dev)
+    scratch = _split_reps_scratch(u, cc, dev, tile)
     smax = torch.empty((groupmax_rows(c, sub), u), dtype=torch.float32, device=dev)
     gmax = torch.empty((groupmax_rows(c, group), u), dtype=torch.float32, device=dev)
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(
             chunk_rows.data_ptr(), reps_aug.data_ptr(), scratch.data_ptr(), smax.data_ptr(),
-            gmax.data_ptr(), c, cc, u, int(lo), int(n), sub, group, stream,
+            gmax.data_ptr(), c, cc, u, int(lo), int(n), sub, group, tile, smem, stream,
         )
     _build.check(status, "score_submax_groupmax")
     score_submax_groupmax.launches += 1
+    score_submax_groupmax.tile_launches[TILES[tile]] += 1
     return smax, gmax
 
 
@@ -519,7 +600,9 @@ def score_count_ge(
 
 
 score_groupmax.launches = 0
+score_groupmax.tile_launches = dict.fromkeys(TILES, 0)
 score_groupmax_fp32.launches = 0
 score_submax_groupmax.launches = 0
+score_submax_groupmax.tile_launches = dict.fromkeys(TILES, 0)
 score_submax_groupmax_fp32.launches = 0
 score_count_ge.launches = 0
