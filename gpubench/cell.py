@@ -196,6 +196,7 @@ def _window(traffic, seconds: float, trace: bool, cuda: bool, sync):
     window = None
     if trace:
         window = Window(prof, t0_ns, t1_ns)
+        print(f"trace: annotation copies on the device's timeline, skipped: {dict(window.span_copies)}", flush=True)
         for note in window.check(counters):
             print("trace: " + note, flush=True)
     return window_s, counters, window

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, Tuple
 
+from . import spec
+
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -34,39 +36,14 @@ def k4_bytes(n: int, u: int, cc: int, itemsize: int, sub: int, group: int) -> fl
     return n * cc * itemsize + u * cc * 4 + 4.0 * u * (-(-n // sub) + -(-n // group))
 
 
-def lstm_forward(d: int, gates: int) -> float:
-    """One LSTM timestep of one sequence: the input and the recurrent
-    projections (``2 * d * gates * d`` each); the gate nonlinearities are
-    not counted."""
-    return 4.0 * d * gates * d
-
-
-def attention_forward(d: int, layers: int, keys: float) -> float:
-    """One position of a pre-LN block stack: the q/k/v and output
-    projections (``8 d^2``), the point-wise FFN (``4 d^2``), and the logits
-    and the context over ``keys`` attended positions (``4 d keys``)."""
-    return layers * (12.0 * d * d + 4.0 * d * keys)
-
-
-def tower_forward(cfg: Dict, positions: float, keys: float = 0.0) -> float:
-    """The family's tower over ``positions`` positions (for attention,
-    ``keys`` is the sum over those positions of the positions attended)."""
-    d = int(cfg["embedding_dim"])
-    if cfg["family"] == "lstm":
-        gates = 3 if cfg["lstm_variant"] == "coupled" else 4
-        return positions * lstm_forward(d, gates)
-    if cfg["family"] == "attention":
-        per = attention_forward(d, int(cfg["num_layers"]), 0.0)
-        return positions * per + int(cfg["num_layers"]) * 4.0 * d * keys
-    raise ValueError(f"unknown family {cfg['family']!r}")
-
-
 def serve_batch(cfg: Dict, history_lengths: Iterable[int], n: int) -> float:
     """One served batch: the tower over each history (the last ``T`` items,
     up to the position whose state is the representation) and the scores
-    of every user against the whole catalog."""
+    of every user against the whole catalog; the family's file counts the
+    tower (``families/<family>.py tower_flops``)."""
     t = int(cfg["max_sequence_length"])
     lens = [min(int(x), t) for x in history_lengths]
     keys = sum(x * (x + 1) / 2 for x in lens)
     cc = int(cfg["embedding_dim"]) + 1
-    return tower_forward(cfg, sum(lens), keys) + catalog_scores(n, len(lens), cc)
+    tower = spec.family_module(cfg["family"]).tower_flops(cfg, sum(lens), keys)
+    return tower + catalog_scores(n, len(lens), cc)

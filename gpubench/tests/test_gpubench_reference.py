@@ -37,7 +37,7 @@ def test_sasrec_tower_matches_the_port():
     leaves = weights.tower_leaves(3, cfg, W_SERVE, "cpu")
     x = torch.randn((4, 10, 8), generator=torch.Generator().manual_seed(1))
     got = attention_apply(weights.nest(leaves), x, num_heads=2)
-    want = towers.sasrec(leaves, x, 2, 2)
+    want = towers.apply(cfg, leaves, x)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 

@@ -15,10 +15,11 @@ class Event:
         return self._name
 
     def device_type(self):
-        return "DeviceType.CUDA" if self._kind in trace.DEVICE_KINDS else "DeviceType.CPU"
+        on_device = self._kind in trace.DEVICE_KINDS + ("gpu_user_annotation",)
+        return "DeviceType.CUDA" if on_device else "DeviceType.CPU"
 
     def is_user_annotation(self):
-        return self._kind == "user_annotation"
+        return self._kind in ("user_annotation", "gpu_user_annotation")
 
     def start_ns(self):
         return self._start
@@ -75,3 +76,17 @@ def test_a_counter_that_disagrees_names_the_kernel_and_both_counts():
     w = trace.Window(Prof(events()), 0, 1000)
     with pytest.raises(trace.TraceLost, match=r"score_submax_kernel: 1 device records in the window, 2 launches counted"):
         w.check({"score_submax_groupmax": 2, "gather_rows": 1})
+
+
+@pytest.mark.parametrize("marked", [True, False])
+def test_an_annotations_copy_on_the_device_is_no_kernel(marked):
+    """Whatever its name, and also where the profiler does not mark the
+    copy as an annotation's (it then bears the host annotation's name)."""
+    ev = events() + [
+        Event("hstu:block", "user_annotation", 100, 800),
+        Event("hstu:block", "gpu_user_annotation" if marked else "kernel", 100, 800, corr=9),
+    ]
+    w = trace.Window(Prof(ev), 0, 1000)
+    assert w.span_copies == {"hstu:block": 1}
+    assert w.busy_s() == pytest.approx(450e-9)
+    assert w.check({"score_submax_groupmax": 1, "gather_rows": 1}) == []

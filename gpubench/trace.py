@@ -6,21 +6,24 @@ belongs to them, and read over the measured window only.
 A trace is trusted only when it lost nothing in the window: every kernel
 launch the runtime recorded has its device record (matched by correlation
 id), and each hand-written kernel's count equals its wrapper's ``.launches``
-counter over the same window. Otherwise the window is measured again
-(``cell.TRACE_ATTEMPTS`` tries in all), then the run fails naming the
-kernel and both counts."""
+counter over the same window (``kernels/*.json`` map kernel symbols to
+counters). Otherwise the window is measured again (``cell.TRACE_ATTEMPTS``
+tries in all), then the run fails naming the kernel and both counts.
+
+A user annotation's copy on the device's timeline (``record_function``
+makes one, whoever calls it) is not a device operation: it is skipped and
+counted in ``Window.span_copies``, whatever its name."""
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import json
 import re
-from pathlib import Path
 from typing import Dict, List, Tuple
 
+from . import spec
+
 DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
-KERNEL_MAP = Path(__file__).resolve().parent / "kernels.json"
 _LAUNCH = re.compile(r"(?i)launchkernel|launchcooperativekernel")
 SPAN_PREFIX = "bench:"
 
@@ -71,13 +74,16 @@ def short_name(name: str, width: int = 90) -> str:
 
 def activity(e) -> str:
     """The kineto activity of a profiler event: ``kernel``, ``gpu_memcpy``,
-    ``gpu_memset``, ``cuda_runtime`` (a launch call), ``user_annotation``
-    or ``cpu_op`` (torch builds without ``activity_type`` are read by the
-    device and the name)."""
+    ``gpu_memset``, ``gpu_user_annotation`` (a user annotation's copy on the
+    device's timeline), ``cuda_runtime`` (a launch call),
+    ``user_annotation`` or ``cpu_op`` (torch builds without
+    ``activity_type`` are read by the device and the name)."""
     if hasattr(e, "activity_type"):
         return e.activity_type()
     name = e.name()
     if "CUDA" in str(e.device_type()):
+        if e.is_user_annotation():
+            return "gpu_user_annotation"
         if name.startswith("Memcpy"):
             return "gpu_memcpy"
         if name.startswith("Memset"):
@@ -96,13 +102,19 @@ class Window:
         self.device: List[Tuple[int, int, str, str, int]] = []  # start, end, kind, name, correlation
         self.launches: List[Tuple[int, int]] = []  # start, correlation
         self.host: List[Tuple[int, int, str, int]] = []  # start, end, name, thread (operators, spans)
-        for e in prof.profiler.kineto_results.events():
-            kind = activity(e)
+        self.span_copies: Dict[str, int] = collections.Counter()  # in the window, by name
+        events = [(e, activity(e)) for e in prof.profiler.kineto_results.events()]
+        # A device record that bears a host annotation's name is its copy,
+        # also where the profiler does not mark it as one.
+        annotations = {e.name() for e, kind in events if kind == "user_annotation"}
+        for e, kind in events:
             start = e.start_ns()
             end = start + e.duration_ns()
+            if kind == "gpu_user_annotation" or (kind in DEVICE_KINDS and e.name() in annotations):
+                if end > t0_ns and start < t1_ns:
+                    self.span_copies[e.name()] += 1
+                continue
             if kind in DEVICE_KINDS:
-                if e.name().startswith(SPAN_PREFIX):
-                    continue  # a span's copy on the device's timeline
                 if end > t0_ns and start < t1_ns:
                     self.device.append((start, end, kind, e.name(), e.correlation_id()))
                 continue
@@ -153,7 +165,7 @@ class Window:
                 f"{len(missing)} of {len(self.launches)} kernel launches in the window have no device record "
                 f"(launched {at[0]:.6f}-{at[-1]:.6f} s into the window)"
             )
-        groups = json.loads(KERNEL_MAP.read_text())
+        groups = spec.kernel_map()
         names = collections.Counter(short_name(n) for n, _ in self.kernels())
         notes = []
         for symbol, wrappers in groups.items():

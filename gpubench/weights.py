@@ -9,10 +9,12 @@ one ``normal_`` call and cut into the family's leaves."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from . import spec
 
 CHUNK_ROWS = 1 << 20
 _TABLE, _TOWER = 1, 2
@@ -64,48 +66,26 @@ def table_rows(seed: int, ids: torch.Tensor, n: int, dim: int, w: Dict, device) 
     return out
 
 
-def tower_shapes(cfg: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
-    """``(path, shape, kind)`` of the family's tower leaves in the port's
-    tree layout; ``kind`` is ``w`` (a matrix), ``b`` (a bias), ``scale`` (a
-    layer norm's scale) or ``pos`` (the position table)."""
-    d = int(cfg["embedding_dim"])
-    if cfg["family"] == "lstm":
-        gates = 3 if cfg["lstm_variant"] == "coupled" else 4
-        return [("w_x", (d, gates * d), "w"), ("w_h", (d, gates * d), "w"), ("b", (gates * d,), "b")]
-    if cfg["family"] == "attention":
-        out = [("pos", (int(cfg["max_sequence_length"]), d), "pos")]
-        for i in range(int(cfg["num_layers"])):
-            p = f"layers.{i}."
-            out += [
-                (p + "ln1.scale", (d,), "scale"), (p + "ln1.bias", (d,), "b"),
-                (p + "w_qkv", (d, 3 * d), "w"), (p + "w_o", (d, d), "w"),
-                (p + "ln2.scale", (d,), "scale"), (p + "ln2.bias", (d,), "b"),
-                (p + "w_f1", (d, d), "w"), (p + "b_f1", (d,), "b"),
-                (p + "w_f2", (d, d), "w"), (p + "b_f2", (d,), "b"),
-            ]
-        return out + [("ln_f.scale", (d,), "scale"), ("ln_f.bias", (d,), "b")]
-    raise ValueError(f"unknown family {cfg['family']!r}")
-
-
 def tower_leaves(seed: int, cfg: Dict, w: Dict, device) -> Dict[str, torch.Tensor]:
-    """The tower's leaves by dotted path, from one draw: matrices with the
-    Glorot std of their fans (per gate for the recurrent families), the
-    position table with std ``D ** -0.5``, biases with ``tower_bias_std``,
-    layer-norm scales ``1 + tower_bias_std * N(0, 1)``."""
-    shapes = tower_shapes(cfg)
-    total = sum(int(np.prod(s)) for _, s, _ in shapes)
+    """The tower's leaves by dotted path, from one draw cut into the
+    ``(path, shape, kind, fans)`` that the family's file lists in the port's
+    tree layout (``families/<family>.py tower_shapes``): matrices (``w``)
+    with the Glorot std of their ``fans``, the position table (``pos``) with
+    std ``D ** -0.5``, biases (``b``) with ``tower_bias_std``, layer-norm
+    scales (``scale``) ``1 + tower_bias_std * N(0, 1)``."""
+    shapes = spec.family_module(cfg["family"]).tower_shapes(cfg)
+    total = sum(int(np.prod(s)) for _, s, _, _ in shapes)
     gen = torch.Generator(device=device).manual_seed(derived_seed(seed, _TOWER))
     flat = torch.empty((total,), dtype=torch.float32, device=device).normal_(generator=gen)
     d = int(cfg["embedding_dim"])
     bias_std = float(w["tower_bias_std"])
     out, at = {}, 0
-    for path, shape, kind in shapes:
+    for path, shape, kind, fans in shapes:
         size = int(np.prod(shape))
         x = flat[at : at + size].reshape(shape).clone()
         at += size
         if kind == "w":
-            fan_out = d if cfg["family"] == "lstm" else shape[1]
-            x.mul_((2.0 / (shape[0] + fan_out)) ** 0.5)
+            x.mul_((2.0 / (fans[0] + fans[1])) ** 0.5)
         elif kind == "pos":
             x.mul_(d**-0.5)
         elif kind == "b":
