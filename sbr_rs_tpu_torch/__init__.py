@@ -12,11 +12,13 @@ catalog score + group-max, the catalog score + rank count, the row gather,
 the row read-modify-write and WARP's candidate score are hand-written CUDA
 kernels (``csrc/``), which every family's training, serving and evaluation
 run; the EWMA, GRU and attention towers are plain PyTorch, as they have no
-kernel in the JAX package. Models build on the card (``.build()``) unless
-the caller asks for the CPU (``.build("cpu")``); ``model.save(dir)`` and
-``ImplicitSequenceModel.load(dir)`` write and read the JAX package's
-checkpoints (:mod:`.utils.checkpoint`), and :func:`.utils.metrics.trace`
-profiles a region. This package imports torch and numpy, never jax, flax
+kernel in the JAX package. A fifth family, HSTU (:mod:`.models.hstu`),
+serves and evaluates on timed histories (``timestamps``); it has no
+counterpart in the JAX package and does not train yet. Models build on the
+card (``.build()``) unless the caller asks for the CPU (``.build("cpu")``);
+``model.save(dir)`` and ``ImplicitSequenceModel.load(dir)`` write and read
+the JAX package's checkpoints (:mod:`.utils.checkpoint`), and
+:func:`.utils.metrics.trace` profiles a region. This package imports torch and numpy, never jax, flax
 or msgpack.
 
 Example::

@@ -184,7 +184,8 @@ def _count_catalog_fused(table, reps, prefix, test_items, test_in_prefix, num_it
 
 def _batch_inputs(model, test: CompressedInteractions, users: np.ndarray, num_items: int):
     """Device tensors for one batch of qualifying users: ``reps [U, D]``
-    of their prefixes (every item but the last), ``prefix [U, P]`` each
+    of their prefixes (every item but the last; with their timestamps for a
+    family whose tower reads times), ``prefix [U, P]`` each
     user's distinct seen ids ascending and padded with ``num_items``,
     ``test_items [U]`` and ``test_in_prefix [U]``."""
     dev = model.device
@@ -192,13 +193,15 @@ def _batch_inputs(model, test: CompressedInteractions, users: np.ndarray, num_it
     starts, ends = ptr[users], ptr[users + 1] - 1  # the prefix ends before the last item
     lens = (ends - starts).astype(np.int64)
     offsets = np.repeat(starts - (np.cumsum(lens) - lens), lens)
-    flat = test.item_ids[offsets + np.arange(int(lens.sum()))].astype(np.int64)
+    at = offsets + np.arange(int(lens.sum()))
+    flat = test.item_ids[at].astype(np.int64)
+    times = test.timestamps[at].astype(np.int64) if model._reads_times else None
     test_items = test.item_ids[ends].astype(np.int64)
     n_rows = model.hyper._num_items
     if flat.size and (flat.min() < 0 or flat.max() >= n_rows):
         raise InvalidPredictionValue(f"History contains item ids outside [0, {n_rows}).")
 
-    reps = model._representations(flat, lens)
+    reps = model._representations(flat, lens, times)
     if not bool(torch.isfinite(reps).all()):
         raise InvalidPredictionValue()
 

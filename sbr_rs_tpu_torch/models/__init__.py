@@ -1,6 +1,6 @@
 """Models module: shared enums, the user-representation type, the
-``OnlineRankingModel`` protocol, the four families (:mod:`.lstm`,
-:mod:`.ewma`, :mod:`.gru`, :mod:`.attention`) and the training engine
+``OnlineRankingModel`` protocol, the five families (:mod:`.lstm`,
+:mod:`.ewma`, :mod:`.gru`, :mod:`.attention`, :mod:`.hstu`) and the training engine
 (:mod:`.engine`).
 
 Copies of the jax-free pieces of :mod:`sbr_rs_tpu.models` (importing that
@@ -63,7 +63,7 @@ class Parallelism(enum.Enum):
     SYNCHRONOUS = "synchronous"
 
 
-from . import attention, engine, ewma, gru, lstm  # noqa: E402  (re-exported submodules)
+from . import attention, engine, ewma, gru, hstu, lstm  # noqa: E402  (re-exported submodules)
 
 __all__ = [
     "ImplicitUser",
@@ -75,5 +75,6 @@ __all__ = [
     "engine",
     "ewma",
     "gru",
+    "hstu",
     "lstm",
 ]

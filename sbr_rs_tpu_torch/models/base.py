@@ -296,10 +296,19 @@ def device_count() -> int:
 def _flatten(histories: Sequence[Sequence[int]]) -> Tuple[np.ndarray, np.ndarray]:
     """All histories' ids end to end, and each history's length."""
     lens = np.fromiter((len(h) for h in histories), dtype=np.int64, count=len(histories))
-    flat = np.fromiter(
-        itertools.chain.from_iterable(histories), dtype=np.int64, count=int(lens.sum())
-    )
-    return flat, lens
+    return _concat_rows(histories, lens), lens
+
+
+def _concat_rows(rows: Sequence[Sequence[int]], lens: np.ndarray) -> np.ndarray:
+    """``rows`` end to end as int64, ``lens`` their lengths: one
+    ``np.concatenate`` where the rows are integer arrays (the first an
+    array, the result 1-D, integer and ``lens.sum()`` long), else the
+    rows' Python ints read one by one."""
+    if len(rows) and isinstance(rows[0], np.ndarray):
+        flat = np.concatenate(rows)
+        if flat.ndim == 1 and flat.dtype.kind in "iu" and flat.size == lens.sum():
+            return flat.astype(np.int64, copy=False)
+    return np.fromiter(itertools.chain.from_iterable(rows), dtype=np.int64, count=int(lens.sum()))
 
 
 def _pad_histories(flat: np.ndarray, lens: np.ndarray, t: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -315,6 +324,20 @@ def _pad_histories(flat: np.ndarray, lens: np.ndarray, t: int) -> Tuple[np.ndarr
     return inputs, np.maximum(keep, 1)
 
 
+def _flatten_times(timestamps: Sequence[Sequence[int]], lens: np.ndarray) -> np.ndarray:
+    """All histories' timestamps end to end (int64 seconds), as
+    :func:`_flatten` lays out their ids; raises ``ValueError`` unless each
+    history has one timestamp an item."""
+    if len(timestamps) != len(lens):
+        raise ValueError(f"{len(timestamps)} rows of timestamps for {len(lens)} histories")
+    counts = np.fromiter((len(t) for t in timestamps), dtype=np.int64, count=len(timestamps))
+    bad = np.flatnonzero(counts != lens)
+    if bad.size:
+        r = int(bad[0])
+        raise ValueError(f"history {r} has {lens[r]} items but {counts[r]} timestamps")
+    return _concat_rows(timestamps, lens)
+
+
 def _seen_rows(flat: np.ndarray, lens: np.ndarray, n: int, width: int) -> np.ndarray:
     """``[U, width]`` seen ids sorted ascending per row; empty slots hold
     ``n`` (one past the catalog: never a candidate)."""
@@ -322,6 +345,14 @@ def _seen_rows(flat: np.ndarray, lens: np.ndarray, n: int, width: int) -> np.nda
     seen[np.arange(width) < lens[:, None]] = flat
     seen.sort(axis=1)
     return seen
+
+
+def _seen(flat: np.ndarray, lens: np.ndarray, n: int, exclude_seen: bool) -> np.ndarray:
+    """The rows the top-k filters: :func:`_seen_rows` with ``exclude_seen``,
+    else one empty slot a user."""
+    if exclude_seen:
+        return _seen_rows(flat, lens, n, max(int(lens.max()), 1))
+    return np.full((len(lens), 1), n, dtype=np.int64)
 
 
 # -- exact top-k ---------------------------------------------------------------
@@ -829,6 +860,8 @@ class ImplicitSequenceModel:
 
     # Catalog chunk of the streamed top-k (the JAX package's value).
     _SERVE_ITEM_CHUNK = 131072
+    # The tower reads each position's time (``timestamps`` in serving).
+    _reads_times = False
     # ``fit`` without a mesh runs each batch as this many shares summed as
     # a data axis sums them (``engine.make_train_step(shares=...)``): the
     # collective-free reference a (2, m) mesh's fit is held to bit for bit.
@@ -1113,11 +1146,19 @@ class ImplicitSequenceModel:
 
     # -- serving --------------------------------------------------------------
 
-    def _representations(self, flat: np.ndarray, lens: np.ndarray) -> torch.Tensor:
+    def _representations(
+        self, flat: np.ndarray, lens: np.ndarray, timestamps: Optional[np.ndarray] = None
+    ) -> torch.Tensor:
         """Batched user representations ``[U, D]`` (f32, on the device) of
         the histories given as :func:`_flatten` output (reference
         ``src/models/sequence_model.rs:182-211``): the tower over each
-        history's last ``max_sequence_length`` items, final state."""
+        history's last ``max_sequence_length`` items, final state.
+        ``timestamps``: the items' times as :func:`_flatten_times` gives
+        them, for a family whose tower reads times (``_reads_times``, which
+        lays out its own inputs); any other family takes none and raises
+        ``ValueError`` on some."""
+        if timestamps is not None:
+            raise ValueError(f"{type(self).__name__} reads no timestamps; pass none")
         t = self.hyper._max_sequence_length
         n = self.hyper._num_items
         with span("tower.inputs"):
@@ -1134,18 +1175,32 @@ class ImplicitSequenceModel:
             last = torch.from_numpy(lengths - 1).to(self.device)
         return hidden[torch.arange(u, device=self.device), last]
 
-    def user_representation(self, item_ids: Sequence[int]) -> ImplicitUser:
-        """User representation from an interaction history (``src/lib.rs:105-108``)."""
-        return self.user_representations([item_ids])[0]
+    def user_representation(
+        self, item_ids: Sequence[int], timestamps: Optional[Sequence[int]] = None
+    ) -> ImplicitUser:
+        """User representation from an interaction history (``src/lib.rs:105-108``);
+        ``timestamps``: the items' times, for a family that reads them."""
+        return self.user_representations([item_ids], None if timestamps is None else [timestamps])[0]
 
-    def user_representations(self, histories: Sequence[Sequence[int]]) -> List[ImplicitUser]:
+    def user_representations(
+        self, histories: Sequence[Sequence[int]], timestamps: Optional[Sequence[Sequence[int]]] = None
+    ) -> List[ImplicitUser]:
         """Batched :meth:`user_representation`: one tower run for all users."""
-        reps = self._representations(*_flatten(histories)).cpu().numpy()
+        flat, lens = _flatten(histories)
+        times = None if timestamps is None else _flatten_times(timestamps, lens)
+        reps = self._representations(flat, lens, times).cpu().numpy()
         return [ImplicitUser(user_embedding=r) for r in reps]
 
-    def recommend(self, item_ids: Sequence[int], k: int = 10, exclude_seen: bool = True) -> List[int]:
+    def recommend(
+        self,
+        item_ids: Sequence[int],
+        k: int = 10,
+        exclude_seen: bool = True,
+        timestamps: Optional[Sequence[int]] = None,
+    ) -> List[int]:
         """Top-``k`` next items for one history (see :meth:`recommend_batch`)."""
-        return self.recommend_batch([item_ids], k=k, exclude_seen=exclude_seen)[0]
+        times = None if timestamps is None else [timestamps]
+        return self.recommend_batch([item_ids], k=k, exclude_seen=exclude_seen, timestamps=times)[0]
 
     def recommend_batch(
         self,
@@ -1155,6 +1210,7 @@ class ImplicitSequenceModel:
         approximate: bool = False,
         recall_target: float = 0.95,
         return_scores: bool = False,
+        timestamps: Optional[Sequence[Sequence[int]]] = None,
     ):
         """Exact top-``k`` next items for many histories: representations,
         full-catalog scoring, seen-item exclusion (with ``exclude_seen``)
@@ -1171,7 +1227,12 @@ class ImplicitSequenceModel:
         guarantees a recall of at least ``recall_target``. Here both modes
         serve the exact list, whose recall is 1, so it meets every target;
         with ``approximate=True``, ``recall_target`` must lie in (0, 1], as
-        the JAX package's mode requires."""
+        the JAX package's mode requires.
+
+        ``timestamps``: one row a history, one int time in seconds an item,
+        for a family whose tower reads times (HSTU); ``ValueError`` when a
+        row's length differs from its history's, when such a family gets
+        none, or when another family gets some."""
         if approximate and not 0.0 < recall_target <= 1.0:
             raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
         if not len(histories):
@@ -1179,16 +1240,19 @@ class ImplicitSequenceModel:
         with span("recommend_batch"):
             with span("serve.prepare"):
                 flat, lens = _flatten(histories)
+                times = None if timestamps is None else _flatten_times(timestamps, lens)
                 n = self.hyper._num_items
-                if exclude_seen:
-                    seen_np = _seen_rows(flat, lens, n, max(int(lens.max()), 1))
-                else:
-                    seen_np = np.full((len(lens), 1), n, dtype=np.int64)
+                # A tower that reads times runs long enough to hide the seen
+                # rows: they are sorted once it is queued (below).
+                seen_np = _seen(flat, lens, n, exclude_seen) if times is None else None
             # Read before the tower is queued: the reading waits for no kernel.
             with span("serve.budgets"):
-                budgets = self._serving_budgets(*seen_np.shape)
+                budgets = self._serving_budgets(len(lens), max(int(lens.max()), 1) if exclude_seen else 1)
             with span("serve.tower"):
-                reps = self._representations(flat, lens)
+                reps = self._representations(flat, lens, times)
+            if seen_np is None:
+                with span("serve.prepare"):
+                    seen_np = _seen(flat, lens, n, exclude_seen)
             with span("serve.topk"):
                 seen = torch.from_numpy(seen_np).to(self.device)
                 vals, idx = self._topk(reps, seen, min(k, n), budgets)

@@ -12,6 +12,9 @@ user states ``[B, T, D]``. Counterpart of :mod:`sbr_rs_tpu.models.towers`.
   package's two-level blocked affine scan.
 * Causal self-attention: pre-LN transformer layers with learned,
   window-relative positions.
+* HSTU (Zhai et al. 2024, arXiv:2402.17152): gated pointwise attention
+  with no softmax, over a relative bias of positions and bucketed time
+  gaps; it reads each position's time as well as its embedding.
 
 The GRU, EWMA and attention towers have no Pallas kernel in the JAX package
 and are plain PyTorch here, on every device, keeping the JAX package's
@@ -27,6 +30,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ops.lstm_kernels import lstm_fwd_plain, time_major_inputs
+from ..utils.metrics import span
 from ..utils.precision import fp32_matmul
 
 Params = Dict[str, torch.Tensor]
@@ -248,6 +252,112 @@ def attention_apply(
         f = torch.relu(f_in.reshape(b_ * t_, d) @ layer["w_f1"] + layer["b_f1"])
         h = h + drop((f @ layer["w_f2"] + layer["b_f2"]).reshape(b_, t_, d))
     return _layer_norm(params["ln_f"], h)
+
+
+# -- HSTU ------------------------------------------------------------------------
+
+HSTU_TIME_BUCKETS = 128  # ts_w has HSTU_TIME_BUCKETS + 1 entries
+_HSTU_EPS = 1e-6
+
+
+def init_hstu(
+    generator: torch.Generator,
+    dim: int,
+    max_len: int,
+    num_layers: int,
+    num_heads: int,
+    device: torch.device,
+) -> Dict:
+    """Parameters of the HSTU tower: a learned position table ``pos
+    [max_len, D]`` (std ``dim ** -0.5``) and ``num_layers`` blocks
+    ``{w_uvqk [D, 4D], w_o [D, D], b_o [D], pos_w [2 max_len - 1],
+    ts_w [129]}``; each head has ``D / num_heads`` columns of U, V, Q and
+    K. The relative biases start as the public code's (normal, std 0.02)."""
+    if dim % num_heads:
+        raise ValueError(f"num_heads={num_heads} must divide dim={dim}")
+    pos = dim**-0.5 * torch.randn((max_len, dim), generator=generator, device=device, dtype=torch.float32)
+
+    def layer():
+        return {
+            "w_uvqk": _glorot(generator, dim, 4 * dim, device),
+            "w_o": _glorot(generator, dim, dim, device),
+            "b_o": torch.zeros((dim,), device=device),
+            "pos_w": 0.02 * torch.randn((2 * max_len - 1,), generator=generator, device=device),
+            "ts_w": 0.02 * torch.randn((HSTU_TIME_BUCKETS + 1,), generator=generator, device=device),
+        }
+
+    return {"pos": pos, "layers": [layer() for _ in range(num_layers)]}
+
+
+def hstu_time_buckets(times: torch.Tensor) -> torch.Tensor:
+    """``[B, T, T]`` int32 buckets of the time gaps, from ``times [B, T + 1]``
+    int64 seconds: ``bucket[i, j] = clamp(trunc(log(float32(max(|g|, 1))) /
+    0.301), 0, 128)`` of ``g = times[i + 1] - times[j]``, the public code's
+    expression (the query time of position ``i`` is the next column)."""
+    gap = times[:, 1:, None] - times[:, None, :-1]
+    logs = gap.abs_().clamp_(min=1).to(torch.float32)
+    del gap
+    return logs.log_().div_(0.301).to(torch.int32).clamp_(0, HSTU_TIME_BUCKETS)
+
+
+def hstu_position_index(t: int, max_len: int, device: torch.device) -> torch.Tensor:
+    """``[t, t]`` int64 index into a block's ``pos_w`` of query ``i`` and
+    key ``j``: ``max_len - 1 + j - i``."""
+    idx = torch.arange(t, device=device)
+    return max_len - 1 + idx[None, :] - idx[:, None]
+
+
+def _hstu_norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.layer_norm(x, x.shape[-1:], eps=_HSTU_EPS)
+
+
+def hstu_apply(params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Run the HSTU blocks over item embeddings ``x [B, T, D]`` (left-aligned
+    windows, padded at the end) with ``times [B, T + 1]`` (int64 seconds: each
+    position's time, then the query time of the last position), returning
+    each position's output L2-normalised, ``[B, T, D]``.
+
+    ``x_0 = sqrt(D) x + pos[:T]``; per block ``n = LN(x)``, ``U, V, Q, K =
+    split(SiLU(n W_uvqk))``, per head ``A = SiLU(Q K^T + rab) / T`` times the
+    causal mask (diagonal kept), ``x += (U * LN(concat_h(A V))) W_o + b_o``;
+    layer norms without affine, eps 1e-6. ``rab[i, j] = pos_w[max_len - 1 +
+    j - i] + ts_w[bucket(times[i + 1] - times[j])]``. Padding positions only
+    feed outputs past the last valid one. ``hstu_apply.positions`` counts the
+    positions computed, padding included."""
+    with span("hstu.tower"):
+        b_, t_, d = x.shape
+        dev = x.device
+        pos = params["pos"]
+        max_len = pos.shape[0]
+        if t_ > max_len:
+            raise ValueError(f"a window of {t_} positions is longer than the tower's {max_len}")
+        if tuple(times.shape) != (b_, t_ + 1):
+            raise ValueError(f"times {tuple(times.shape)} do not match ({b_}, {t_ + 1})")
+        hstu_apply.positions += b_ * t_
+        hd = d // num_heads
+        with span("hstu.bias"):
+            buckets = hstu_time_buckets(times).view(-1)
+        rel = hstu_position_index(t_, max_len, dev)
+        causal = (rel <= max_len - 1).to(torch.float32)  # j <= i, the diagonal kept
+        h = x.to(torch.float32) * d**0.5 + pos[:t_]
+        for layer in params["layers"]:
+            uvqk = torch.nn.functional.silu(_hstu_norm(h).reshape(b_ * t_, d) @ layer["w_uvqk"])
+            u, v, q, k = uvqk.split(d, dim=1)
+            v, q, k = (z.reshape(b_, t_, num_heads, hd).transpose(1, 2) for z in (v, q, k))
+            with span("hstu.attention"):
+                rab = layer["ts_w"].index_select(0, buckets).view(b_, t_, t_)
+                rab += layer["pos_w"][rel]
+                a = (q @ k.transpose(-1, -2)).add_(rab[:, None])  # [B, H, T, T]
+                del rab
+                a = torch.nn.functional.silu(a, inplace=True).div_(t_).mul_(causal)
+                o = (a @ v).transpose(1, 2).reshape(b_, t_, d)
+                del a
+            y = u.reshape(b_, t_, d) * _hstu_norm(o)
+            h = h + (y.reshape(b_ * t_, d) @ layer["w_o"] + layer["b_o"]).reshape(b_, t_, d)
+        return h / h.norm(dim=-1, keepdim=True).clamp(min=_HSTU_EPS)
+
+
+hstu_apply.positions = 0
 
 
 # -- EWMA ------------------------------------------------------------------------

@@ -203,7 +203,7 @@ def load_model(
     ``mesh`` every rank of it calls this and keeps its own slab (module
     docstring). With ``timings``, :func:`msgpack_codec.read` adds its
     seconds."""
-    from ..models import attention, ewma, gru, lstm
+    from ..models import attention, ewma, gru, hstu, lstm
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -217,6 +217,7 @@ def load_model(
         "ewma": (ewma, ewma.ImplicitEWMAModel),
         "attention": (attention, attention.ImplicitAttentionModel),
         "gru": (gru, gru.ImplicitGRUModel),
+        "hstu": (hstu, hstu.ImplicitHSTUModel),
     }
     model_type = config["model_type"]
     if model_type not in families:
