@@ -52,6 +52,17 @@ attention families, one phase per printed line:
    ragged ends, lo > 0 with the catalog ending inside the call; the error
    on all-positive inputs against the bound; K4 timed at 50M x 33 (U =
    4096 and 1) on both tiles and at 10M x 128 x 4096;
+3c. (run once the launch counters exist, after phase 4's K4 check) HSTU's
+   layer norms (``ops/hstu_kernels.py``, ``csrc/hstu_norm.cu``) at the HSTU
+   cell's shapes, 8,192 x 200 = 1,638,400 rows of 50, 2 heads of 25: one
+   ``recommend_batch(k=10, exclude_seen=True, timestamps=...)`` of 8,192
+   timed histories of 20-200 items on an 8-block model of 26,744 items, the
+   cell's serving path (each kernel launched exactly 8 times, no LSTM
+   kernel), then the pre-norm and the gated norm against their plain versions (the
+   largest difference over the largest plain magnitude within 1e-6), each
+   timed by device time beside its plain version, its byte bound and
+   ``torch.nn.functional.layer_norm`` over the same rows (``library_ms``,
+   which the port never calls);
 4. the 3xTF32 K4 at the serving shape (10M x 4096) against its plain version
    and timed beside the FP32 K4 on the same inputs; then ``recommend_batch(
    k=10)`` for 4096 users over a 10,000,000-item LSTM-127 catalog
@@ -257,6 +268,9 @@ REF_USERS = 256
 REPEATS = 100
 # Phase 5d, serve-50M-merge: a catalog past the single-pass merge budget.
 N_ITEMS_50M = 50_000_000
+# Phase 3c: the HSTU cell's shapes (hstu-ml20m-large: 8,192 users a batch
+# over 200 positions, width 50, 2 heads, 8 blocks, 26,744 items).
+HSTU_USERS, HSTU_T, HSTU_DIM, HSTU_HEADS, HSTU_LAYERS, HSTU_ITEMS = 8192, 200, 50, 2, 8, 26_744
 
 TOL_LSTM = 1e-5   # f32; the 127-term sums run in another order, |h| < 1
 TOL_SCORE = 2e-5  # f32 dot of 128 terms in another order, scores of order 1
@@ -700,6 +714,75 @@ def device_ms(fn, reps=20):
     raise SmokeFailure("torch.profiler saw no device time")
 
 
+def hstu_norm_phase(dev, mark, record, zero_counters, read_counters, absent):
+    """Phase 3c: HSTU's two layer norms at the HSTU cell's shapes (8,192
+    users x 200 positions, D = 50, 2 heads of 25): one ``recommend_batch``
+    of 8,192 timed histories of 20-200 items, the path the cell serves,
+    through the launch counters (each kernel exactly once a block), then each
+    kernel against its plain version and timed by device time beside it, its
+    byte bound (each input byte read once, ``u``'s 50 floats a row of its
+    200, each output byte written once) and PyTorch's layer norm over the
+    same rows."""
+    import numpy as np
+    import torch
+
+    from sbr_rs_tpu_torch.models import hstu
+    from sbr_rs_tpu_torch.ops import hstu_kernels as hk
+
+    mark("phase 3c")
+    b, t, d, heads, layers = HSTU_USERS, HSTU_T, HSTU_DIM, HSTU_HEADS, HSTU_LAYERS
+    rows, hd = b * t, d // heads
+    model = (hstu.Hyperparameters(HSTU_ITEMS, t).embedding_dim(d).num_layers(layers).num_heads(heads)
+             .from_seed(22).build(dev))
+    rng = np.random.default_rng(22)
+    lens = rng.integers(20, t + 1, b)
+    histories = [rng.integers(0, HSTU_ITEMS, n) for n in lens]
+    times = [np.cumsum(rng.integers(1, 10**6, n)) for n in lens]
+    model.recommend_batch(histories, k=10, exclude_seen=True, timestamps=times)  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    ids = model.recommend_batch(histories, k=10, exclude_seen=True, timestamps=times)
+    torch.cuda.synchronize()
+    read_counters("hstu serving path", ("hstu_norm", "hstu_gated_norm"), absent=absent)
+    if (hk.hstu_norm.launches, hk.hstu_gated_norm.launches) != (layers, layers):
+        raise SmokeFailure(f"phase 3c: {hk.hstu_norm.launches} pre-norm and {hk.hstu_gated_norm.launches} gated "
+                           f"launches in one recommend_batch of a {layers}-block model, expected {layers} each")
+    if len(ids) != b or any(len(row) != 10 for row in ids):
+        raise SmokeFailure(f"phase 3c: recommend_batch returned {len(ids)} lists, not {b} of 10")
+    del model, histories, times, ids
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    h = torch.randn((b, t, d), device=dev, generator=gen) * 2.0 + 0.5
+    u = torch.randn((rows, 4 * d), device=dev, generator=gen).split(d, dim=1)[0]
+    o = torch.randn((b, heads, t, hd), device=dev, generator=gen)
+    row_bytes = 4.0 * rows * d
+    cases = (
+        ("hstu_norm", lambda: hk.hstu_norm(h), lambda: hk.hstu_norm_plain(h),
+         lambda: torch.nn.functional.layer_norm(h, (d,), eps=hk.EPS), (6.0 * rows * d, 2 * row_bytes)),
+        ("hstu_gated_norm", lambda: hk.hstu_gated_norm(u, o), lambda: hk.hstu_gated_norm_plain(u, o),
+         lambda: torch.nn.functional.layer_norm(o.view(rows, d), (d,), eps=hk.EPS), (7.0 * rows * d, 3 * row_bytes)),
+    )
+    batch_ms = 0.0
+    for name, kernel, plain, library, work in cases:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got.reshape(want.shape) - want).abs().max())
+        rel = err / float(want.abs().max())
+        del got, want
+        if not rel <= 1e-6:
+            raise SmokeFailure(f"phase 3c {name}: largest difference {rel:.3e} of the largest magnitude, above 1e-6")
+        ms, plain_ms, library_ms = device_ms(kernel), device_ms(plain), device_ms(library)
+        batch_ms += layers * ms
+        print(f"  {name} {b} x {t} x {d} ({heads} heads): {ms:.4f} ms device, plain {plain_ms:.4f} ms, "
+              f"layer_norm {library_ms:.4f} ms; largest difference {err:.3e} ({rel:.3e} of the largest "
+              f"magnitude)", flush=True)
+        record(name, err, ms, plain_ms, work=work, library_ms=library_ms)
+    print(f"phase 3c: HSTU's norms {batch_ms:.3f} ms a batch of {b} users ({layers} blocks)", flush=True)
+    del h, u, o
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -713,6 +796,7 @@ def main() -> None:
     from sbr_rs_tpu_torch.models.base import topk_streamed
     from sbr_rs_tpu_torch.models.towers import lstm_apply
     from sbr_rs_tpu_torch.ops import _build
+    from sbr_rs_tpu_torch.ops import hstu_kernels as hk
     from sbr_rs_tpu_torch.ops import lstm_kernels as lk
     from sbr_rs_tpu_torch.ops import row_kernels as rowk
     from sbr_rs_tpu_torch.ops import topk_kernels as tk
@@ -1663,6 +1747,8 @@ def main() -> None:
         "scatter_add_rows": rowk.scatter_add_rows_,
         "cand_score_smem": rowk.cand_score_smem,
         "cand_score_rows": rowk.cand_score_rows,
+        "hstu_norm": hk.hstu_norm,
+        "hstu_gated_norm": hk.hstu_gated_norm,
     }
     serving_kernels = (
         "lstm_fwd", "score_groupmax", "score_groupmax_fp32", "score_submax_groupmax", "score_submax_groupmax_fp32",
@@ -1695,6 +1781,8 @@ def main() -> None:
             launches[name] += count
             if count:
                 launches_by_path[name][path] = count
+
+    hstu_norm_phase(dev, mark, record, zero_counters, read_counters, lstm_kernels)
 
     floors = (base.MERGE_BUFFER_FLOOR, base.SUBMAX_BUFFER_FLOOR, base.PHASE2_BUFFER_FLOOR)
     if tuple(CONSTANT_BUDGETS.values()) != floors:
@@ -2650,6 +2738,8 @@ def main() -> None:
         "scatter_add_rows": ("sbr_rs_tpu_torch/csrc/row_gather.cu", "scripts/row_pipeline_probe.py:70"),
         "cand_score_smem": ("sbr_rs_tpu_torch/csrc/cand_score.cu", "scripts/cand_gather_probe.py:112"),
         "cand_score_rows": ("sbr_rs_tpu_torch/csrc/cand_score.cu", "scripts/cand_gather_probe.py:156"),
+        "hstu_norm": ("sbr_rs_tpu_torch/csrc/hstu_norm.cu", "none: the JAX package has no HSTU"),
+        "hstu_gated_norm": ("sbr_rs_tpu_torch/csrc/hstu_norm.cu", "none: the JAX package has no HSTU"),
     }
     for name, (source, replaces) in sources.items():
         r = report[name]

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..errors import InvalidPredictionValue
+from ..ops.hstu_kernels import MAX_DIM
 from ..utils.metrics import span
 from ..utils.precision import fp32_matmul
 from . import base
@@ -100,7 +101,9 @@ class Hyperparameters(base.Hyperparameters):
     def build(self, device: "torch.device | str" = "cuda") -> "ImplicitHSTUModel":
         """Build a model on ``device``: the card unless the caller asks for
         ``"cpu"``. Raises when ``num_heads`` does not divide the embedding
-        width, and without CUDA for a ``cuda`` build."""
+        width, when that width is above the layer norms' 256
+        (:class:`ImplicitHSTUModel`), and without CUDA for a ``cuda``
+        build."""
         if self._item_embedding_dim % self._num_heads:
             raise ValueError(
                 f"num_heads={self._num_heads} must divide embedding_dim={self._item_embedding_dim}"
@@ -110,10 +113,21 @@ class Hyperparameters(base.Hyperparameters):
 
 class ImplicitHSTUModel(base.ImplicitSequenceModel):
     """HSTU sequence model for implicit feedback, served and evaluated on
-    timed histories. The tower is :func:`hstu_apply`, plain PyTorch on every
-    device."""
+    timed histories. The tower is :func:`hstu_apply`: plain PyTorch, except
+    the two layer norms a block, which run :mod:`..ops.hstu_kernels` on the
+    card. Those take rows of at most 256 floats on every device, so a model
+    with a wider ``embedding_dim`` is refused here, before any parameter is
+    drawn, rather than at its first call."""
 
     _reads_times = True
+
+    def __init__(
+        self, hyper: Hyperparameters, device: "torch.device | str", item_table: Optional[torch.Tensor] = None
+    ):
+        width = hyper._item_embedding_dim
+        if width > MAX_DIM:
+            raise ValueError(f"embedding_dim={width}: HSTU's layer norms take rows of at most {MAX_DIM} floats")
+        super().__init__(hyper, device, item_table)
 
     def _init_tower(self, generator: torch.Generator, dim: int) -> Dict:
         hp = self.hyper

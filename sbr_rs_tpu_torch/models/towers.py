@@ -14,7 +14,8 @@ user states ``[B, T, D]``. Counterpart of :mod:`sbr_rs_tpu.models.towers`.
   window-relative positions.
 * HSTU (Zhai et al. 2024, arXiv:2402.17152): gated pointwise attention
   with no softmax, over a relative bias of positions and bucketed time
-  gaps; it reads each position's time as well as its embedding.
+  gaps; it reads each position's time as well as its embedding. Its layer
+  norms run a CUDA kernel on the card (:mod:`..ops.hstu_kernels`).
 
 The GRU, EWMA and attention towers have no Pallas kernel in the JAX package
 and are plain PyTorch here, on every device, keeping the JAX package's
@@ -29,6 +30,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..ops.hstu_kernels import hstu_gated_norm, hstu_norm
 from ..ops.lstm_kernels import lstm_fwd_plain, time_major_inputs
 from ..utils.metrics import span
 from ..utils.precision import fp32_matmul
@@ -307,10 +309,6 @@ def hstu_position_index(t: int, max_len: int, device: torch.device) -> torch.Ten
     return max_len - 1 + idx[None, :] - idx[:, None]
 
 
-def _hstu_norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.layer_norm(x, x.shape[-1:], eps=_HSTU_EPS)
-
-
 def hstu_apply(params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Run the HSTU blocks over item embeddings ``x [B, T, D]`` (left-aligned
     windows, padded at the end) with ``times [B, T + 1]`` (int64 seconds: each
@@ -320,9 +318,11 @@ def hstu_apply(params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: in
     ``x_0 = sqrt(D) x + pos[:T]``; per block ``n = LN(x)``, ``U, V, Q, K =
     split(SiLU(n W_uvqk))``, per head ``A = SiLU(Q K^T + rab) / T`` times the
     causal mask (diagonal kept), ``x += (U * LN(concat_h(A V))) W_o + b_o``;
-    layer norms without affine, eps 1e-6. ``rab[i, j] = pos_w[max_len - 1 +
-    j - i] + ts_w[bucket(times[i + 1] - times[j])]``. Padding positions only
-    feed outputs past the last valid one. ``hstu_apply.positions`` counts the
+    layer norms without affine, eps 1e-6, on the card one kernel each
+    (:mod:`..ops.hstu_kernels`; the gate ``U *`` in the second's epilogue).
+    ``rab[i, j] = pos_w[max_len - 1 + j - i] + ts_w[bucket(times[i + 1] -
+    times[j])]``. Padding positions only feed outputs past the last valid
+    one. ``hstu_apply.positions`` counts the
     positions computed, padding included."""
     with span("hstu.tower"):
         b_, t_, d = x.shape
@@ -341,7 +341,7 @@ def hstu_apply(params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: in
         causal = (rel <= max_len - 1).to(torch.float32)  # j <= i, the diagonal kept
         h = x.to(torch.float32) * d**0.5 + pos[:t_]
         for layer in params["layers"]:
-            uvqk = torch.nn.functional.silu(_hstu_norm(h).reshape(b_ * t_, d) @ layer["w_uvqk"])
+            uvqk = torch.nn.functional.silu(hstu_norm(h).reshape(b_ * t_, d) @ layer["w_uvqk"])
             u, v, q, k = uvqk.split(d, dim=1)
             v, q, k = (z.reshape(b_, t_, num_heads, hd).transpose(1, 2) for z in (v, q, k))
             with span("hstu.attention"):
@@ -350,9 +350,9 @@ def hstu_apply(params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: in
                 a = (q @ k.transpose(-1, -2)).add_(rab[:, None])  # [B, H, T, T]
                 del rab
                 a = torch.nn.functional.silu(a, inplace=True).div_(t_).mul_(causal)
-                o = (a @ v).transpose(1, 2).reshape(b_, t_, d)
+                o = a @ v  # [B, H, T, hd]
                 del a
-            y = u.reshape(b_, t_, d) * _hstu_norm(o)
+            y = hstu_gated_norm(u, o)
             h = h + (y.reshape(b_ * t_, d) @ layer["w_o"] + layer["b_o"]).reshape(b_, t_, d)
         return h / h.norm(dim=-1, keepdim=True).clamp(min=_HSTU_EPS)
 
