@@ -32,8 +32,11 @@ Serving (``recommend_batch``):
   one, and the few it cannot certify run again in FP32. Phase 2 re-scores
   the kept candidates in f32, drops seen items by id and takes the exact
   top-k;
-* seen lists wider than ``_SERVE_MAX_POSTFILTER_SEEN``: chunked scoring
-  with a per-chunk seen mask (:func:`topk_streamed_bigseen`).
+* seen lists wider than ``_SERVE_MAX_POSTFILTER_SEEN``: the catalog in
+  slabs of ``_SERVE_ITEM_CHUNK`` rows, each slab's dense top-k as a catalog
+  of its own (:func:`topk_slab` over :func:`topk_small`), then one exact
+  merge of the slabs' lists (:func:`merge_topk_parts`), as a row-sharded
+  table is served.
 
 The budgets that pick the route and size its buffers are the JAX package's
 on the CPU, so both packages take the same branch for the same shapes. On a
@@ -311,17 +314,43 @@ def _concat_rows(rows: Sequence[Sequence[int]], lens: np.ndarray) -> np.ndarray:
     return np.fromiter(itertools.chain.from_iterable(rows), dtype=np.int64, count=int(lens.sum()))
 
 
-def _pad_histories(flat: np.ndarray, lens: np.ndarray, t: int) -> Tuple[np.ndarray, np.ndarray]:
-    """``inputs [U, T]``: each history's last ``t`` ids, left-aligned and
-    zero-padded; ``lengths [U]``. An empty history reads as ``[0]`` (the
+def _window_ids(flat: np.ndarray, lens: np.ndarray, t: int) -> np.ndarray:
+    """The ids the tower reads: each history's last ``t`` (all of ``flat``
+    when no history is longer)."""
+    if not lens.size or lens.max() <= t:
+        return flat
+    rank = np.arange(flat.size) - np.repeat(np.cumsum(lens) - lens, lens)
+    return flat[rank >= np.repeat(lens - t, lens)]
+
+
+def _tower_windows(
+    flat: np.ndarray, times: Optional[np.ndarray], lens: np.ndarray, t: int, device
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """The tower's inputs on ``device``: ``ids [U, t]``, ``times [U, t + 1]``
+    (``None`` without ``times``) and ``last [U]``, gathered there from one
+    copy of the flat rows (``flat``, ``times``: the histories end to end),
+    with no host pass over ``U x t``. Row ``r`` holds history ``r``'s last
+    ``keep = min(lens[r], t)`` ids left-aligned, then 0; its times likewise,
+    then its last time to the end of the row, so column ``i + 1`` is
+    position ``i``'s query time and the last valid position's is its own;
+    ``last[r] = max(keep - 1, 0)``, the position whose state is the
+    representation. An empty history reads as item 0 at time 0 (the
     reference's index inputs default to item 0)."""
+    u = len(lens)
     keep = np.minimum(lens, t)
-    cols = np.arange(t)
-    mask = cols < keep[:, None]
-    src = (np.cumsum(lens) - keep)[:, None] + cols
-    inputs = np.zeros((len(lens), t), dtype=np.int64)
-    inputs[mask] = flat[src[mask]]
-    return inputs, np.maximum(keep, 1)
+    last = torch.from_numpy(np.maximum(keep - 1, 0)).to(device)
+    if not flat.size:
+        zeros = torch.zeros((u, t + 1), dtype=torch.int64, device=device)
+        return zeros[:, :t], None if times is None else zeros, last
+    meta = torch.from_numpy(np.stack([np.where(keep > 0, np.cumsum(lens) - keep, 0), keep], axis=1)).to(device)
+    first, kept = meta[:, :1], meta[:, 1:]
+    col = torch.arange(t + 1, device=device)
+    src = first + torch.minimum(col, kept - 1).clamp_(min=0)
+    ids = torch.from_numpy(flat).to(device)[src[:, :t]].masked_fill_(col[:t] >= kept, 0)
+    if times is None:
+        return ids, None, last
+    rows = torch.from_numpy(times).to(device)[src].masked_fill_(kept == 0, 0)
+    return ids, rows, last
 
 
 def _flatten_times(timestamps: Sequence[Sequence[int]], lens: np.ndarray) -> np.ndarray:
@@ -740,38 +769,6 @@ topk_streamed.rechecked_users = 0
 topk_streamed.last_route = None
 
 
-def topk_streamed_bigseen(
-    table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int, *, serve_chunk: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Wide seen lists: chunked dense scoring with a per-chunk seen mask and
-    a running top-k merge. Plain PyTorch, correct for any seen width."""
-    with span("topk.bigseen"):
-        n = table.shape[0]
-        dev = table.device
-        u = reps.shape[0]
-        kk = min(k, n)
-        rows = torch.arange(u, device=dev)[:, None].expand_as(seen)
-        offsets = torch.arange(serve_chunk, device=dev)
-        vals = torch.full((u, kk), float("-inf"), device=dev)
-        idx = torch.arange(kk, device=dev).expand(u, kk)  # distinct: an all-masked user
-        for ch in range(-(-n // serve_chunk)):
-            lo = ch * serve_chunk
-            ids = lo + offsets
-            tc = table.index_select(0, ids.clamp(max=n - 1)).to(torch.float32)
-            with fp32_matmul():
-                scores = reps @ tc[:, :-1].T + tc[:, -1]
-            scores.masked_fill_((ids >= n)[None, :], float("-inf"))
-            local = seen - lo
-            hit = (local >= 0) & (local < serve_chunk)  # seen ids inside this chunk
-            scores[rows[hit], local[hit]] = float("-inf")
-            cv, cp = torch.topk(scores, min(kk, serve_chunk), dim=1)
-            mv = torch.cat([vals, cv], dim=1)
-            mi = torch.cat([idx, lo + cp], dim=1)
-            vals, p = torch.topk(mv, kk, dim=1)
-            idx = torch.gather(mi, 1, p)
-        return vals, idx
-
-
 def _slab_seen(seen: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """Global seen rows ``[U, S]`` as the slab ``[lo, hi)``'s own: an id
     inside it becomes ``id - lo``; any other id, and the pad, ``hi - lo``
@@ -1154,25 +1151,27 @@ class ImplicitSequenceModel:
         ``src/models/sequence_model.rs:182-211``): the tower over each
         history's last ``max_sequence_length`` items, final state.
         ``timestamps``: the items' times as :func:`_flatten_times` gives
-        them, for a family whose tower reads times (``_reads_times``, which
-        lays out its own inputs); any other family takes none and raises
-        ``ValueError`` on some."""
-        if timestamps is not None:
+        them, which a family whose tower reads times (``_reads_times``)
+        needs and any other refuses (``ValueError``). Only the ids the
+        windows read are checked, on the host; the windows are laid out on
+        the device (:func:`_tower_windows`), and nothing here waits for the
+        tower."""
+        if self._reads_times and timestamps is None:
+            raise ValueError(f"{type(self).__name__} needs the histories' timestamps")
+        if not self._reads_times and timestamps is not None:
             raise ValueError(f"{type(self).__name__} reads no timestamps; pass none")
         t = self.hyper._max_sequence_length
         n = self.hyper._num_items
+        u = len(lens)
         with span("tower.inputs"):
-            inputs, lengths = _pad_histories(flat, lens, t)
-            if inputs.size and (inputs.min() < 0 or inputs.max() >= n):
+            window = _window_ids(flat, lens, t)
+            if window.size and (window.min() < 0 or window.max() >= n):
                 raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
-            u = len(lens)
-            idx = torch.from_numpy(inputs).to(self.device).reshape(-1)
-        emb = self._rows(idx)[:, :-1]
+            ids, times, last = _tower_windows(flat, timestamps, lens, t, self.device)
+        emb = self._rows(ids.reshape(-1))[:, :-1]
+        args = (times,) if self._reads_times else ()
         with fp32_matmul():
-            hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1))
-        # A blocking copy: it waits for the tower's kernels.
-        with span("tower.inputs"):
-            last = torch.from_numpy(lengths - 1).to(self.device)
+            hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1), *args)
         return hidden[torch.arange(u, device=self.device), last]
 
     def user_representation(
@@ -1242,17 +1241,14 @@ class ImplicitSequenceModel:
                 flat, lens = _flatten(histories)
                 times = None if timestamps is None else _flatten_times(timestamps, lens)
                 n = self.hyper._num_items
-                # A tower that reads times runs long enough to hide the seen
-                # rows: they are sorted once it is queued (below).
-                seen_np = _seen(flat, lens, n, exclude_seen) if times is None else None
             # Read before the tower is queued: the reading waits for no kernel.
             with span("serve.budgets"):
                 budgets = self._serving_budgets(len(lens), max(int(lens.max()), 1) if exclude_seen else 1)
             with span("serve.tower"):
                 reps = self._representations(flat, lens, times)
-            if seen_np is None:
-                with span("serve.prepare"):
-                    seen_np = _seen(flat, lens, n, exclude_seen)
+            # The seen rows are sorted while the tower runs.
+            with span("serve.prepare"):
+                seen_np = _seen(flat, lens, n, exclude_seen)
             with span("serve.topk"):
                 seen = torch.from_numpy(seen_np).to(self.device)
                 vals, idx = self._topk(reps, seen, min(k, n), budgets)
@@ -1291,14 +1287,14 @@ class ImplicitSequenceModel:
         (:func:`card_reading`, :func:`budget_share`) for the largest slab.
         Under a mesh the ranks' readings travel in one all-gather (on the
         host over gloo), so every rank takes the same budgets. The card is
-        read only for a batch the streamed route serves (the largest slab
-        past one chunk, seen lists the post-filter takes): the same on every
+        read only for a batch the streamed route serves
+        (:meth:`_catalog_route` of the largest slab): the same on every
         rank, so every rank joins the collective or none does."""
         fixed = (self._MERGE_BUFFER_BYTES, self._SUBMAX_BUFFER_BYTES, self._PHASE2_BUFFER_BYTES)
         budgets = (MERGE_BUFFER_FLOOR, SUBMAX_BUFFER_FLOOR, PHASE2_BUFFER_FLOOR)
         mesh = self.hyper._mesh
         rows = -(-self.hyper._num_items // (1 if mesh is None else mesh.model))
-        streamed = rows > self._SERVE_ITEM_CHUNK and seen_width <= self._SERVE_MAX_POSTFILTER_SEEN
+        streamed = self._catalog_route(rows, seen_width) == "streamed"
         reading = card_reading(self.device) if streamed and None in fixed else None
         if reading is not None:
             readings = [reading]
@@ -1311,17 +1307,38 @@ class ImplicitSequenceModel:
             )
         return tuple(b if f is None else f for f, b in zip(fixed, budgets))
 
+    def _catalog_route(self, rows: int, seen_width: int) -> str:
+        """The route of a catalog of ``rows`` rows for seen lists
+        ``seen_width`` wide: ``"small"`` (:func:`topk_small`),
+        ``"wide_seen"`` (:func:`topk_slab` a chunk, :func:`merge_topk_parts`)
+        or ``"streamed"`` (:func:`topk_streamed`, the one that reads the
+        budgets)."""
+        if rows <= self._SERVE_ITEM_CHUNK:
+            return "small"
+        if seen_width > self._SERVE_MAX_POSTFILTER_SEEN:
+            return "wide_seen"
+        return "streamed"
+
     def _catalog_topk(
         self, table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int, budgets: Tuple[int, int, int]
     ):
         """The exact top-``k`` of ``table`` as a whole catalog (seen ids
-        past it never match), by the route its size, the seen width and the
-        ``(merge, submax, phase2)`` budgets (:meth:`_serving_budgets`) pick."""
+        past it never match), by the route its size and the seen width pick
+        (:meth:`_catalog_route`) on the ``(merge, submax, phase2)`` budgets
+        (:meth:`_serving_budgets`). Wide seen lists are served as a
+        row-sharded table is, on one rank, in slabs of one chunk."""
+        n = table.shape[0]
         serve_chunk = self._SERVE_ITEM_CHUNK
-        if table.shape[0] <= serve_chunk:
+        route = self._catalog_route(n, seen.shape[1])
+        if route == "small":
             return topk_small(table, reps, seen, k)
-        if seen.shape[1] > self._SERVE_MAX_POSTFILTER_SEEN:
-            return topk_streamed_bigseen(table, reps, seen, k, serve_chunk=serve_chunk)
+        if route == "wide_seen":
+            parts = [
+                topk_slab(topk_small, table[lo : lo + serve_chunk], reps, seen, k, lo, n)
+                for lo in range(0, n, serve_chunk)
+            ]
+            with span("topk.merge"):
+                return merge_topk_parts(parts, k, n)
         merge, submax, phase2 = budgets
         return topk_streamed(
             table, reps, seen, k,

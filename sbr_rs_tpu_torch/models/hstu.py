@@ -14,52 +14,13 @@ the training windows carry no times.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
-import numpy as np
 import torch
 
-from ..errors import InvalidPredictionValue
 from ..ops.hstu_kernels import MAX_DIM
-from ..utils.metrics import span
-from ..utils.precision import fp32_matmul
 from . import base
 from .towers import hstu_apply, init_hstu
-
-
-def _window_ids(flat: np.ndarray, lens: np.ndarray, t: int) -> np.ndarray:
-    """The ids the tower reads: each history's last ``t`` (all of ``flat``
-    when no history is longer)."""
-    if not lens.size or lens.max() <= t:
-        return flat
-    rank = np.arange(flat.size) - np.repeat(np.cumsum(lens) - lens, lens)
-    return flat[rank >= np.repeat(lens - t, lens)]
-
-
-def _windows(
-    flat: np.ndarray, times: np.ndarray, lens: np.ndarray, t: int, device
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``ids [U, t]``, ``times [U, t + 1]`` and ``last [U]`` on ``device``,
-    gathered there from one copy of the flat rows (``flat``, ``times``: the
-    histories end to end), with no host pass over ``U x t``. Row ``r`` holds
-    history ``r``'s last ``keep = min(lens[r], t)`` ids left-aligned, then
-    0; its times likewise, then its last time to the end of the row, so
-    column ``i + 1`` is position ``i``'s query time and the last valid
-    position's is its own; ``last[r] = max(keep - 1, 0)``. An empty history
-    reads as item 0 at time 0."""
-    u = len(lens)
-    keep = np.minimum(lens, t)
-    last = torch.from_numpy(np.maximum(keep - 1, 0)).to(device)
-    if not flat.size:
-        zeros = torch.zeros((u, t + 1), dtype=torch.int64, device=device)
-        return zeros[:, :t], zeros, last
-    meta = torch.from_numpy(np.stack([np.where(keep > 0, np.cumsum(lens) - keep, 0), keep], axis=1)).to(device)
-    first, kept = meta[:, :1], meta[:, 1:]
-    col = torch.arange(t + 1, device=device)
-    src = first + torch.minimum(col, kept - 1).clamp_(min=0)
-    ids = torch.from_numpy(flat).to(device)[src[:, :t]].masked_fill_(col[:t] >= kept, 0)
-    rows = torch.from_numpy(times).to(device)[src].masked_fill_(kept == 0, 0)
-    return ids, rows, last
 
 
 class Hyperparameters(base.Hyperparameters):
@@ -135,29 +96,6 @@ class ImplicitHSTUModel(base.ImplicitSequenceModel):
 
     def _tower_fn(self):
         return functools.partial(hstu_apply, num_heads=self.hyper._num_heads)
-
-    def _representations(
-        self, flat: np.ndarray, lens: np.ndarray, timestamps: Optional[np.ndarray] = None
-    ) -> torch.Tensor:
-        """The base class's representations over timed histories
-        (``timestamps`` as :func:`.base._flatten_times` gives them;
-        ``ValueError`` without). The windows of ids and times are laid out
-        on the device (:func:`_windows`), and nothing here waits for the
-        tower: only the ids the windows read are checked, on the host."""
-        if timestamps is None:
-            raise ValueError(f"{type(self).__name__} needs the histories' timestamps")
-        t = self.hyper._max_sequence_length
-        n = self.hyper._num_items
-        u = len(lens)
-        with span("tower.inputs"):
-            window = _window_ids(flat, lens, t)
-            if window.size and (window.min() < 0 or window.max() >= n):
-                raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
-            ids, times, last = _windows(flat, timestamps, lens, t, self.device)
-        emb = self._rows(ids.reshape(-1))[:, :-1]
-        with fp32_matmul():
-            hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1), times)
-        return hidden[torch.arange(u, device=self.device), last]
 
     def fit(self, interactions) -> float:
         """Not supported: the training windows carry item ids only, and

@@ -94,16 +94,19 @@ def trace(log_dir: str) -> Iterator[None]:
 
     ``with trace(dir): model.recommend_batch(...)`` shows the serving call's
     stages by name (:func:`span`): ``sbr.recommend_batch`` around
-    ``sbr.serve.prepare`` (histories flattened, seen rows),
-    ``sbr.serve.budgets`` (the card reading and the derived budgets),
-    ``sbr.serve.tower`` (in it ``sbr.tower.inputs``: padding, the id check,
-    the host-to-device copies), ``sbr.serve.topk`` and ``sbr.serve.to_host``.
-    Under ``sbr.serve.topk`` the streamed top-k shows ``sbr.topk.route``,
+    ``sbr.serve.prepare`` (twice: the histories flattened, then the seen
+    rows, sorted once the tower is queued), ``sbr.serve.budgets`` (the card
+    reading and the derived budgets), ``sbr.serve.tower`` (in it
+    ``sbr.tower.inputs``: the id check of the windows and the copies of the
+    flat rows they are laid out from on the device; it waits for no
+    kernel), ``sbr.serve.topk`` (the seen rows' copy, which waits for the
+    tower, and the top-k) and ``sbr.serve.to_host``. Under
+    ``sbr.serve.topk`` the streamed top-k shows ``sbr.topk.route``,
     ``sbr.topk.phase1`` (each K4 or K3 call), ``sbr.topk.winners``,
     ``sbr.topk.phase2``, ``sbr.topk.certify`` (in it ``sbr.topk.recheck``
     when users run again in FP32) and, on a row-sharded table,
-    ``sbr.topk.merge``; the other routes ``sbr.topk.small`` and
-    ``sbr.topk.bigseen``."""
+    ``sbr.topk.merge``; a catalog of one chunk ``sbr.topk.small``; wide seen
+    lists one ``sbr.topk.small`` a chunk, then ``sbr.topk.merge``."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     cuda = torch.cuda.is_available()

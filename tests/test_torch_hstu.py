@@ -110,10 +110,11 @@ def test_array_rows_serve_as_lists_do():
 
 @pytest.mark.parametrize("lens", [[0, 1, 5, SEQ_LEN, 2 * SEQ_LEN + 3, 0], [SEQ_LEN + 1, 2], [0, 0]])
 def test_windows_match_a_row_by_row_layout(lens):
-    """``_pad_histories`` (the untimed towers' host layout) and HSTU's
-    device layout ``hstu._windows`` against a row-by-row layout: the last
-    ``T`` entries left-aligned, then 0 (ids) or the last time repeated
-    (times), an empty history all 0 and read at position 0."""
+    """The one device layout of the tower's inputs, ``base._tower_windows``,
+    with times (HSTU) and without (the untimed towers: no times, the same
+    ids and positions), against a row-by-row layout: the last ``T`` entries
+    left-aligned, then 0 (ids) or the last time repeated (times), an empty
+    history all 0 and read at position 0."""
     lens = np.array(lens)
     flat = np.arange(int(lens.sum()), dtype=np.int64) * 7 + 3
     ids, times, last, at = [], [], [], 0
@@ -123,17 +124,17 @@ def test_windows_match_a_row_by_row_layout(lens):
         ids.append(kept + [0] * (SEQ_LEN - len(kept)))
         times.append(kept + (kept[-1:] or [0]) * (SEQ_LEN + 1 - len(kept)))
         last.append(max(len(kept) - 1, 0))
-    got_ids, got_lengths = base._pad_histories(flat, lens, SEQ_LEN)
-    assert got_ids.tolist() == ids and (got_lengths - 1).tolist() == last
-    got = hstu._windows(flat, flat, lens, SEQ_LEN, "cpu")
+    got = base._tower_windows(flat, flat, lens, SEQ_LEN, "cpu")
     assert [g.tolist() for g in got] == [ids, times, last]
+    got_ids, got_times, got_last = base._tower_windows(flat, None, lens, SEQ_LEN, "cpu")
+    assert got_times is None and [got_ids.tolist(), got_last.tolist()] == [ids, last]
 
 
 @pytest.mark.parametrize("family", ["lstm", "hstu"])
 def test_only_the_ids_a_window_reads_are_checked(family):
     """An id outside the catalog raises where the tower reads it (the last
     ``T`` of a history) and not before; the seen filter skips it. Both
-    layouts: the untimed towers' on the host, HSTU's on the device."""
+    kinds of tower: untimed and timed."""
     if family == "lstm":
         m = lstm.Hyperparameters(NUM_ITEMS, SEQ_LEN).embedding_dim(DIM).from_seed(1).build("cpu")
         serve = m.recommend_batch
@@ -147,21 +148,26 @@ def test_only_the_ids_a_window_reads_are_checked(family):
         serve([long + [NUM_ITEMS], [3]], k=4)
 
 
-def test_a_timed_call_sorts_its_seen_rows_while_the_tower_runs():
-    """A timed ``recommend_batch`` records ``serve.prepare`` twice (the
-    flat rows, then the seen rows once the tower is queued) and one
+@pytest.mark.parametrize("family", ["lstm", "hstu"])
+def test_a_call_sorts_its_seen_rows_while_the_tower_runs(family):
+    """Every family's ``recommend_batch`` records ``serve.prepare`` twice
+    (the flat rows, then the seen rows once the tower is queued) and one
     ``tower.inputs`` (nothing waits for the tower there), and serves the
     same bits as with no profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    m = _model()
     hist, times = _histories([3, SEQ_LEN + 2, 1])
+    if family == "lstm":
+        m = lstm.Hyperparameters(NUM_ITEMS, SEQ_LEN).embedding_dim(DIM).from_seed(1).build("cpu")
+        times, tower = None, []
+    else:
+        m, tower = _model(), ["sbr.hstu.tower"]
     want = m.recommend_batch(hist, k=5, return_scores=True, timestamps=times)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         got = m.recommend_batch(hist, k=5, return_scores=True, timestamps=times)
     assert got[0] == want[0] and got[1].tobytes() == want[1].tobytes()
     names = [e.name for e in prof.events() if e.name.startswith("sbr.")]
-    top = ["sbr.serve.prepare", "sbr.serve.budgets", "sbr.serve.tower", "sbr.tower.inputs", "sbr.hstu.tower",
+    top = ["sbr.serve.prepare", "sbr.serve.budgets", "sbr.serve.tower", "sbr.tower.inputs", *tower,
            "sbr.serve.topk", "sbr.serve.to_host"]
     assert {n: names.count(n) for n in top} == {n: 2 if n == "sbr.serve.prepare" else 1 for n in top}
 

@@ -99,7 +99,7 @@ ROUTES = {
     "single_pass_submax": ({"_SERVE_ITEM_CHUNK": 64}, "score_submax_groupmax", 1),
     "group_only_pass": ({"_SERVE_ITEM_CHUNK": 64, "_SUBMAX_BUFFER_BYTES": 0}, "score_groupmax", 1),
     "running_merge": ({"_SERVE_ITEM_CHUNK": 64, "_MERGE_BUFFER_BYTES": 0}, "score_groupmax", "chunks"),
-    "wide_seen": ({"_SERVE_ITEM_CHUNK": 64, "_SERVE_MAX_POSTFILTER_SEEN": 8}, "topk_streamed_bigseen", None),
+    "wide_seen": ({"_SERVE_ITEM_CHUNK": 64, "_SERVE_MAX_POSTFILTER_SEEN": 8}, "topk_small", "chunks"),
 }
 
 

@@ -29,10 +29,10 @@ PREFIX = metrics.SPAN_PREFIX
 
 # The top level of every call: (span, parent) -> count.
 TOP = {
-    ("serve.prepare", "recommend_batch"): 1,
+    ("serve.prepare", "recommend_batch"): 2,
     ("serve.budgets", "recommend_batch"): 1,
     ("serve.tower", "recommend_batch"): 1,
-    ("tower.inputs", "serve.tower"): 2,
+    ("tower.inputs", "serve.tower"): 1,
     ("serve.topk", "recommend_batch"): 1,
     ("serve.to_host", "recommend_batch"): 1,
 }
@@ -65,7 +65,8 @@ ROUTES = {
     "running_merge": (5000, {"_MERGE_BUFFER_BYTES": 0}, False, False, {**STREAMED, **_group(3)}),
     "running_merge_recheck": (5000, {"_MERGE_BUFFER_BYTES": 0}, False, True,
                               {**STREAMED, **_group(3, recheck=True)}),
-    "wide_seen": (5000, {}, True, False, {("topk.bigseen", "serve.topk"): 1}),
+    # Wide seen lists: one dense top-k a slab of 2,048 rows, then their merge.
+    "wide_seen": (5000, {}, True, False, {("topk.small", "serve.topk"): 3, ("topk.merge", "serve.topk"): 1}),
 }
 
 
