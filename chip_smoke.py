@@ -63,6 +63,15 @@ attention families, one phase per printed line:
    timed by device time beside its plain version, its byte bound and
    ``torch.nn.functional.layer_norm`` over the same rows (``library_ms``,
    which the port never calls);
+3d. (after 3c) HSTU's attention (``ops/hstu_kernels.py hstu_attention``,
+   ``csrc/hstu_attention.cu``): the same serving path launching it exactly
+   8 times, then the kernel alone at the cell's shapes (8,192 histories of
+   200 positions, 2 heads of 25, lengths by the cell's law: log-normal,
+   median 68, sigma 1.22, clipped to 20-200) against the plain chain (the
+   largest difference at a valid position over the largest plain magnitude
+   within 1e-6, zeros past each length), timed by device time beside the
+   plain chain and its bound (the FP32 operations of the valid causal pairs;
+   q, k and v of the valid rows, the buckets of the valid pairs and o);
 4. the 3xTF32 K4 at the serving shape (10M x 4096) against its plain version
    and timed beside the FP32 K4 on the same inputs; then ``recommend_batch(
    k=10)`` for 4096 users over a 10,000,000-item LSTM-127 catalog
@@ -714,24 +723,18 @@ def device_ms(fn, reps=20):
     raise SmokeFailure("torch.profiler saw no device time")
 
 
-def hstu_norm_phase(dev, mark, record, zero_counters, read_counters, absent):
-    """Phase 3c: HSTU's two layer norms at the HSTU cell's shapes (8,192
-    users x 200 positions, D = 50, 2 heads of 25): one ``recommend_batch``
-    of 8,192 timed histories of 20-200 items, the path the cell serves,
-    through the launch counters (each kernel exactly once a block), then each
-    kernel against its plain version and timed by device time beside it, its
-    byte bound (each input byte read once, ``u``'s 50 floats a row of its
-    200, each output byte written once) and PyTorch's layer norm over the
-    same rows."""
+def hstu_serving_path(dev, zero_counters, read_counters, absent, kernels):
+    """One ``recommend_batch(k=10, exclude_seen=True, timestamps=...)`` of
+    8,192 timed histories of 20-200 items on the HSTU cell's 8-block model
+    (26,744 items, D = 50, 2 heads), after a warm-up, with every launch
+    counter from 0; ``read_counters`` checks that each of ``kernels``
+    launched and none of ``absent`` did."""
     import numpy as np
     import torch
 
     from sbr_rs_tpu_torch.models import hstu
-    from sbr_rs_tpu_torch.ops import hstu_kernels as hk
 
-    mark("phase 3c")
     b, t, d, heads, layers = HSTU_USERS, HSTU_T, HSTU_DIM, HSTU_HEADS, HSTU_LAYERS
-    rows, hd = b * t, d // heads
     model = (hstu.Hyperparameters(HSTU_ITEMS, t).embedding_dim(d).num_layers(layers).num_heads(heads)
              .from_seed(22).build(dev))
     rng = np.random.default_rng(22)
@@ -743,14 +746,33 @@ def hstu_norm_phase(dev, mark, record, zero_counters, read_counters, absent):
     zero_counters()
     ids = model.recommend_batch(histories, k=10, exclude_seen=True, timestamps=times)
     torch.cuda.synchronize()
-    read_counters("hstu serving path", ("hstu_norm", "hstu_gated_norm"), absent=absent)
+    read_counters("hstu serving path", kernels, absent=absent)
+    if len(ids) != b or any(len(row) != 10 for row in ids):
+        raise SmokeFailure(f"the hstu serving path returned {len(ids)} lists, not {b} of 10")
+    del model, histories, times, ids
+    torch.cuda.empty_cache()
+
+
+def hstu_norm_phase(dev, mark, record, zero_counters, read_counters, absent):
+    """Phase 3c: HSTU's two layer norms at the HSTU cell's shapes (8,192
+    users x 200 positions, D = 50, 2 heads of 25): one ``recommend_batch``
+    of 8,192 timed histories of 20-200 items, the path the cell serves,
+    through the launch counters (each kernel exactly once a block), then each
+    kernel against its plain version and timed by device time beside it, its
+    byte bound (each input byte read once, ``u``'s 50 floats a row of its
+    200, each output byte written once) and PyTorch's layer norm over the
+    same rows."""
+    import torch
+
+    from sbr_rs_tpu_torch.ops import hstu_kernels as hk
+
+    mark("phase 3c")
+    b, t, d, heads, layers = HSTU_USERS, HSTU_T, HSTU_DIM, HSTU_HEADS, HSTU_LAYERS
+    rows, hd = b * t, d // heads
+    hstu_serving_path(dev, zero_counters, read_counters, absent, ("hstu_norm", "hstu_gated_norm"))
     if (hk.hstu_norm.launches, hk.hstu_gated_norm.launches) != (layers, layers):
         raise SmokeFailure(f"phase 3c: {hk.hstu_norm.launches} pre-norm and {hk.hstu_gated_norm.launches} gated "
                            f"launches in one recommend_batch of a {layers}-block model, expected {layers} each")
-    if len(ids) != b or any(len(row) != 10 for row in ids):
-        raise SmokeFailure(f"phase 3c: recommend_batch returned {len(ids)} lists, not {b} of 10")
-    del model, histories, times, ids
-    torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(22)
     h = torch.randn((b, t, d), device=dev, generator=gen) * 2.0 + 0.5
@@ -780,6 +802,67 @@ def hstu_norm_phase(dev, mark, record, zero_counters, read_counters, absent):
         record(name, err, ms, plain_ms, work=work, library_ms=library_ms)
     print(f"phase 3c: HSTU's norms {batch_ms:.3f} ms a batch of {b} users ({layers} blocks)", flush=True)
     del h, u, o
+    torch.cuda.empty_cache()
+
+
+def hstu_attention_phase(dev, mark, record, zero_counters, read_counters, absent):
+    """Phase 3d: HSTU's attention, H2. The serving path of phase 3c through
+    the launch counters (H2 exactly once a block), then the kernel alone at
+    the HSTU cell's shapes (8,192 histories of 200 positions, 2 heads of 25)
+    with lengths by the cell's law against the plain chain, timed by device
+    time beside it and its bound: the FP32 operations of the valid causal
+    pairs (``Q K^T`` and ``A V``, 2 x 2 x hd a pair and head) and the bytes
+    these inputs need (q, k and v of the valid rows, one int32 bucket a valid
+    pair, o written once)."""
+    import numpy as np
+    import torch
+
+    from sbr_rs_tpu_torch.ops import hstu_kernels as hk
+
+    mark("phase 3d")
+    b, t, d, heads, layers = HSTU_USERS, HSTU_T, HSTU_DIM, HSTU_HEADS, HSTU_LAYERS
+    hd = d // heads
+    hstu_serving_path(dev, zero_counters, read_counters, absent, ("hstu_attention",))
+    if hk.hstu_attention.launches != layers:
+        raise SmokeFailure(f"phase 3d: {hk.hstu_attention.launches} attention launches in one recommend_batch "
+                           f"of a {layers}-block model, expected {layers}")
+
+    rng = np.random.default_rng(24)
+    lens = np.clip(np.rint(rng.lognormal(np.log(68), 1.22, b)), 20, t).astype(np.int64)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    _, v, q, k = torch.randn((b * t, 4 * d), device=dev, generator=gen).split(d, dim=1)
+    v, q, k = (z.reshape(b, t, heads, hd).transpose(1, 2) for z in (v, q, k))
+    pos_w = 0.02 * torch.randn((2 * t - 1,), device=dev, generator=gen)
+    ts_w = 0.02 * torch.randn((129,), device=dev, generator=gen)
+    buckets = torch.randint(0, 72, (b, t, t), device=dev, generator=gen, dtype=torch.int32)
+    lengths = torch.from_numpy(lens).to(dev)
+
+    def kernel():
+        return hk.hstu_attention(q, k, v, pos_w, ts_w, buckets, lengths)
+
+    def plain():
+        return hk.hstu_attention_plain(q, k, v, pos_w, ts_w, buckets)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    valid = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, :, None].expand_as(got)
+    err = float((got - want).abs()[valid].max())
+    rel = err / float(want.abs().max())
+    past = float(got[~valid].abs().max())
+    del got, want, valid
+    if not rel <= 1e-6 or past != 0.0:
+        raise SmokeFailure(f"phase 3d hstu_attention: largest difference {rel:.3e} of the largest magnitude "
+                           f"(limit 1e-6), {past:.3e} past the lengths (expected 0)")
+    ms, plain_ms = device_ms(kernel), device_ms(plain, reps=5)
+    pairs = float((lens * (lens + 1) // 2).sum())
+    flops = 2 * 2 * hd * heads * pairs
+    moved = 4.0 * (3 * heads * hd * float(lens.sum()) + pairs + b * heads * t * hd)
+    print(f"  hstu_attention {b} x {t}, {heads} heads of {hd}, lengths median {np.median(lens):.0f} (valid pairs "
+          f"{pairs / (b * t * t):.1%} of the square): {ms:.4f} ms device, plain {plain_ms:.4f} ms; largest "
+          f"difference {err:.3e} ({rel:.3e} of the largest magnitude)", flush=True)
+    record("hstu_attention", err, ms, plain_ms, work=(flops, moved))
+    print(f"phase 3d: HSTU's attention {layers * ms:.3f} ms a batch of {b} users ({layers} blocks)", flush=True)
+    del q, k, v, buckets
     torch.cuda.empty_cache()
 
 
@@ -1749,6 +1832,7 @@ def main() -> None:
         "cand_score_rows": rowk.cand_score_rows,
         "hstu_norm": hk.hstu_norm,
         "hstu_gated_norm": hk.hstu_gated_norm,
+        "hstu_attention": hk.hstu_attention,
     }
     serving_kernels = (
         "lstm_fwd", "score_groupmax", "score_groupmax_fp32", "score_submax_groupmax", "score_submax_groupmax_fp32",
@@ -1783,6 +1867,7 @@ def main() -> None:
                 launches_by_path[name][path] = count
 
     hstu_norm_phase(dev, mark, record, zero_counters, read_counters, lstm_kernels)
+    hstu_attention_phase(dev, mark, record, zero_counters, read_counters, lstm_kernels)
 
     floors = (base.MERGE_BUFFER_FLOOR, base.SUBMAX_BUFFER_FLOOR, base.PHASE2_BUFFER_FLOOR)
     if tuple(CONSTANT_BUDGETS.values()) != floors:
@@ -2740,6 +2825,7 @@ def main() -> None:
         "cand_score_rows": ("sbr_rs_tpu_torch/csrc/cand_score.cu", "scripts/cand_gather_probe.py:156"),
         "hstu_norm": ("sbr_rs_tpu_torch/csrc/hstu_norm.cu", "none: the JAX package has no HSTU"),
         "hstu_gated_norm": ("sbr_rs_tpu_torch/csrc/hstu_norm.cu", "none: the JAX package has no HSTU"),
+        "hstu_attention": ("sbr_rs_tpu_torch/csrc/hstu_attention.cu", "none: the JAX package has no HSTU"),
     }
     for name, (source, replaces) in sources.items():
         r = report[name]

@@ -1169,7 +1169,7 @@ class ImplicitSequenceModel:
                 raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
             ids, times, last = _tower_windows(flat, timestamps, lens, t, self.device)
         emb = self._rows(ids.reshape(-1))[:, :-1]
-        args = (times,) if self._reads_times else ()
+        args = (times, last + 1) if self._reads_times else ()
         with fp32_matmul():
             hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1), *args)
         return hidden[torch.arange(u, device=self.device), last]

@@ -13,7 +13,6 @@ the training windows carry no times.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional
 
 import torch
@@ -75,10 +74,13 @@ class Hyperparameters(base.Hyperparameters):
 class ImplicitHSTUModel(base.ImplicitSequenceModel):
     """HSTU sequence model for implicit feedback, served and evaluated on
     timed histories. The tower is :func:`hstu_apply`: plain PyTorch, except
-    the two layer norms a block, which run :mod:`..ops.hstu_kernels` on the
-    card. Those take rows of at most 256 floats on every device, so a model
-    with a wider ``embedding_dim`` is refused here, before any parameter is
-    drawn, rather than at its first call."""
+    the two layer norms and the attention of each block, which run
+    :mod:`..ops.hstu_kernels` on the card. The tower is given each window's
+    length (its last position plus one; 1 for an empty history), so on the
+    card the attention skips the padding, whose rows come out as zeros and
+    feed no valid output. The kernels take rows of at most 256 floats on
+    every device, so a model with a wider ``embedding_dim`` is refused here,
+    before any parameter is drawn, rather than at its first call."""
 
     _reads_times = True
 
@@ -95,7 +97,12 @@ class ImplicitHSTUModel(base.ImplicitSequenceModel):
         return init_hstu(generator, dim, hp._max_sequence_length, hp._num_layers, hp._num_heads, self.device)
 
     def _tower_fn(self):
-        return functools.partial(hstu_apply, num_heads=self.hyper._num_heads)
+        heads = self.hyper._num_heads
+
+        def tower(params: Dict, x: torch.Tensor, times: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+            return hstu_apply(params, x, times, heads, lengths)
+
+        return tower
 
     def fit(self, interactions) -> float:
         """Not supported: the training windows carry item ids only, and

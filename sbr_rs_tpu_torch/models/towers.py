@@ -15,7 +15,8 @@ user states ``[B, T, D]``. Counterpart of :mod:`sbr_rs_tpu.models.towers`.
 * HSTU (Zhai et al. 2024, arXiv:2402.17152): gated pointwise attention
   with no softmax, over a relative bias of positions and bucketed time
   gaps; it reads each position's time as well as its embedding. Its layer
-  norms run a CUDA kernel on the card (:mod:`..ops.hstu_kernels`).
+  norms and its attention run CUDA kernels on the card
+  (:mod:`..ops.hstu_kernels`).
 
 The GRU, EWMA and attention towers have no Pallas kernel in the JAX package
 and are plain PyTorch here, on every device, keeping the JAX package's
@@ -30,7 +31,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..ops.hstu_kernels import hstu_gated_norm, hstu_norm
+from ..ops.hstu_kernels import hstu_attention, hstu_gated_norm, hstu_norm
 from ..ops.lstm_kernels import lstm_fwd_plain, time_major_inputs
 from ..utils.metrics import span
 from ..utils.precision import fp32_matmul
@@ -302,14 +303,9 @@ def hstu_time_buckets(times: torch.Tensor) -> torch.Tensor:
     return logs.log_().div_(0.301).to(torch.int32).clamp_(0, HSTU_TIME_BUCKETS)
 
 
-def hstu_position_index(t: int, max_len: int, device: torch.device) -> torch.Tensor:
-    """``[t, t]`` int64 index into a block's ``pos_w`` of query ``i`` and
-    key ``j``: ``max_len - 1 + j - i``."""
-    idx = torch.arange(t, device=device)
-    return max_len - 1 + idx[None, :] - idx[:, None]
-
-
-def hstu_apply(params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: int) -> torch.Tensor:
+def hstu_apply(
+    params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: int, lengths: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Run the HSTU blocks over item embeddings ``x [B, T, D]`` (left-aligned
     windows, padded at the end) with ``times [B, T + 1]`` (int64 seconds: each
     position's time, then the query time of the last position), returning
@@ -318,15 +314,23 @@ def hstu_apply(params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: in
     ``x_0 = sqrt(D) x + pos[:T]``; per block ``n = LN(x)``, ``U, V, Q, K =
     split(SiLU(n W_uvqk))``, per head ``A = SiLU(Q K^T + rab) / T`` times the
     causal mask (diagonal kept), ``x += (U * LN(concat_h(A V))) W_o + b_o``;
-    layer norms without affine, eps 1e-6, on the card one kernel each
-    (:mod:`..ops.hstu_kernels`; the gate ``U *`` in the second's epilogue).
-    ``rab[i, j] = pos_w[max_len - 1 + j - i] + ts_w[bucket(times[i + 1] -
-    times[j])]``. Padding positions only feed outputs past the last valid
-    one. ``hstu_apply.positions`` counts the
-    positions computed, padding included."""
+    layer norms without affine, eps 1e-6. ``rab[i, j] = pos_w[max_len - 1 +
+    j - i] + ts_w[bucket(times[i + 1] - times[j])]``. On the card each block
+    runs three kernels (:mod:`..ops.hstu_kernels`): the pre-norm and the
+    gated norm (H1, the gate ``U *`` in its epilogue), and the attention
+    (H2), which forms ``A`` in registers and never writes a ``[B, H, T,
+    T]`` tensor.
+
+    ``lengths [B]`` (int64, on ``x``'s device): each window's valid
+    positions, at most ``T``; ``None``: every position is valid.
+    Padding positions only feed outputs past the last valid one; on the card
+    the attention skips them, so their rows of ``A V`` are zeros, and the
+    valid positions' outputs are the same either way. On the CPU
+    ``lengths`` is checked and not read: every position is computed as
+    before. ``hstu_apply.positions`` counts the positions computed, padding
+    included (the projections run over every position)."""
     with span("hstu.tower"):
         b_, t_, d = x.shape
-        dev = x.device
         pos = params["pos"]
         max_len = pos.shape[0]
         if t_ > max_len:
@@ -336,22 +340,14 @@ def hstu_apply(params: Dict, x: torch.Tensor, times: torch.Tensor, num_heads: in
         hstu_apply.positions += b_ * t_
         hd = d // num_heads
         with span("hstu.bias"):
-            buckets = hstu_time_buckets(times).view(-1)
-        rel = hstu_position_index(t_, max_len, dev)
-        causal = (rel <= max_len - 1).to(torch.float32)  # j <= i, the diagonal kept
+            buckets = hstu_time_buckets(times)
         h = x.to(torch.float32) * d**0.5 + pos[:t_]
         for layer in params["layers"]:
             uvqk = torch.nn.functional.silu(hstu_norm(h).reshape(b_ * t_, d) @ layer["w_uvqk"])
             u, v, q, k = uvqk.split(d, dim=1)
             v, q, k = (z.reshape(b_, t_, num_heads, hd).transpose(1, 2) for z in (v, q, k))
             with span("hstu.attention"):
-                rab = layer["ts_w"].index_select(0, buckets).view(b_, t_, t_)
-                rab += layer["pos_w"][rel]
-                a = (q @ k.transpose(-1, -2)).add_(rab[:, None])  # [B, H, T, T]
-                del rab
-                a = torch.nn.functional.silu(a, inplace=True).div_(t_).mul_(causal)
-                o = a @ v  # [B, H, T, hd]
-                del a
+                o = hstu_attention(q, k, v, layer["pos_w"], layer["ts_w"], buckets, lengths)  # [B, H, T, hd]
             y = hstu_gated_norm(u, o)
             h = h + (y.reshape(b_ * t_, d) @ layer["w_o"] + layer["b_o"]).reshape(b_, t_, d)
         return h / h.norm(dim=-1, keepdim=True).clamp(min=_HSTU_EPS)

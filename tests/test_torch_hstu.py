@@ -19,7 +19,8 @@ import torch
 from sbr_rs_tpu_torch import evaluation
 from sbr_rs_tpu_torch.data import Interactions
 from sbr_rs_tpu_torch.models import base, ewma, hstu, lstm
-from sbr_rs_tpu_torch.models.towers import hstu_apply, hstu_position_index, hstu_time_buckets
+from sbr_rs_tpu_torch.models.towers import hstu_apply, hstu_time_buckets
+from sbr_rs_tpu_torch.ops.hstu_kernels import hstu_position_index
 from sbr_rs_tpu_torch.utils.tree import flatten
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
