@@ -13,7 +13,11 @@ the served lists to the JAX package's ``recommend_batch`` on the same
 weights and budgets, its Pallas K3 in interpret mode: values within 1e-5,
 ids equal except where two of the reference's scores tie within 1e-6. They
 also check which users go back to the FP32 K3, and ``theta`` against a
-brute-force maximum over the groups left out.
+brute-force maximum over the groups left out. The selection of the top
+groups in two levels (``_top_groups``: super-group maxima, their top kk,
+then the top kk of the groups they hold) is held to brute force on
+synthetic group maxima, and the single pass with subgroups that takes it
+to the JAX package's dense lists.
 """
 
 import jax
@@ -268,3 +272,117 @@ def test_theta_is_the_largest_maximum_left_out(n, kk, boost, single_pass):
         assert min(kept_vals, default=float("-inf")) >= want
     if -(-n // GROUP) <= kk:
         assert torch.isneginf(theta).all()
+
+
+def _group_maxima(case):
+    """Synthetic group maxima ``[G, U]`` (f32, from a seed) for
+    ``test_top_groups_keeps_the_top_groups``: distinct values; or ties
+    among each user's three largest and among its 50 smallest, far from the
+    kk-th value; or the largest in the tail past the last whole
+    super-group; or ``-inf`` groups at the end, as groups past the catalog
+    give; or only five groups above ``-inf``."""
+    g, u, kind = case
+    gm = torch.from_numpy(np.random.default_rng(g * 7 + u).normal(size=(g, u)).astype(np.float32))
+    order = torch.argsort(gm, dim=0, descending=True)
+    cols = torch.arange(u)
+    if kind == "ties":
+        for a, b in ((0, 3), (g - 50, g)):
+            gm[order[a:b], cols] = gm[order[a], cols]
+    elif kind == "top_in_the_tail":
+        gm[-(g % 128) :] += 3
+    elif kind == "neg_inf":
+        gm[-500:] = float("-inf")
+    elif kind == "few_finite":
+        gm[5:] = float("-inf")
+    return gm
+
+
+# (groups G, users U, kind): G a multiple of the super-group width or not,
+# fewer super-groups than kk (one level), fewer groups than kk, one user.
+TOP_GROUP_CASES = {
+    "tail": (6437, 5, "distinct"),
+    "whole_blocks": (128 * 30, 4, "distinct"),
+    "few_super_groups": (128 * 8 + 5, 4, "distinct"),
+    "few_groups": (7, 4, "distinct"),
+    "one_user": (6437, 1, "distinct"),
+    "top_in_the_tail": (6437, 5, "top_in_the_tail"),
+    "neg_inf_past_the_catalog": (6437, 5, "neg_inf"),
+    "few_finite": (6437, 3, "few_finite"),
+    "ties_away_from_kk": (6437, 5, "ties"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOP_GROUP_CASES))
+@pytest.mark.parametrize("kk", [10, 21])
+def test_top_groups_keeps_the_top_groups(name, kk, monkeypatch):
+    """``_top_groups`` against brute force for each user: ``kk + 1`` kept
+    as ``_group_winners`` keeps them, then the first ``kk`` are the top kk
+    groups (the same set wherever the kk-th value is not tied), and the
+    (kk+1)-th value is bit for bit the largest maximum left out (``-inf``
+    when every group is kept); ``kk`` kept as ``_submax_winners`` keeps
+    them gives the same values, its last the kk-th largest. The floor on
+    the maxima a two-level selection takes is lifted, so that these small
+    stacks take it wherever they hold more super-groups than kk + 1."""
+    monkeypatch.setattr(base, "TWO_LEVEL_MIN_MAXIMA", 0)
+    gm = _group_maxima(TOP_GROUP_CASES[name])
+    g, u = gm.shape
+    assert (g // base.SUPER_GROUP > kk + 1) == (name in ("tail", "whole_blocks", "one_user", "neg_inf_past_the_catalog",
+                                                         "few_finite", "ties_away_from_kk", "top_in_the_tail"))
+    vals, ids = base._top_groups(gm, kk + 1)
+    v1, i1 = base._top_groups(gm, kk)
+    assert vals.shape == ids.shape == (u, min(kk + 1, g)) and v1.shape == (u, min(kk, g))
+    theta = vals[:, kk] if vals.shape[1] > kk else torch.full((u,), float("-inf"))
+    for c in range(u):
+        col = gm[:, c]
+        want = torch.sort(col, descending=True).values
+        assert torch.equal(vals[c], want[: vals.shape[1]]) and torch.equal(v1[c], want[: v1.shape[1]])
+        assert torch.equal(col[ids[c]], vals[c]) and torch.equal(col[i1[c]], v1[c])
+        kept = set(ids[c, :kk].tolist())
+        assert len(kept) == min(kk, g) and len(set(ids[c].tolist())) == ids.shape[1]
+        left = torch.tensor([x for x in range(g) if x not in kept], dtype=torch.int64)
+        largest_left = col[left].max() if len(left) else torch.tensor(float("-inf"))
+        assert theta[c].view(torch.int32) == largest_left.view(torch.int32)
+        if g <= kk:
+            assert torch.isneginf(theta[c])
+        elif name != "few_finite":
+            assert want[kk - 1] > want[kk]  # a strict boundary: the set is unique
+            assert kept == set(torch.argsort(col, descending=True)[:kk].tolist())
+        else:
+            assert set(range(5)) <= kept and torch.isneginf(theta[c])
+
+
+BIG_N = 67_000  # 2,112 group maxima of 32 rows in the single pass: 16 whole super-groups and a tail of 64
+
+
+def test_two_level_single_pass_equals_the_dense_reference(monkeypatch):
+    """``recommend_batch`` on a catalog that takes the single pass with
+    subgroups (groups of 32, subgroups of 8) and has more whole
+    super-groups than kk, and a tail, so ``_submax_winners`` selects in two
+    levels:
+    every list equals the JAX package's dense one, and the FP32 bound
+    certifies every user. The floor on the maxima a two-level selection
+    takes is lifted for this small batch."""
+    monkeypatch.setattr(base, "TWO_LEVEL_MIN_MAXIMA", 0)
+    for name, value in {"_SERVE_ITEM_CHUNK": 2048, "_GROUP_TARGET": 32, "_SUBGROUP_TARGET": 8}.items():
+        monkeypatch.setattr(ImplicitSequenceModel, name, value)
+    monkeypatch.setattr(base.topk_streamed, "rechecked_users", 0)
+    jm = jax_lstm.Hyperparameters(BIG_N, SEQ_LEN).embedding_dim(DIM).from_seed(51).build()
+    tree = {
+        "item_table": np.array(jm._params["item_table"]),
+        "tower": {k: np.array(v) for k, v in jm._params["tower"].items()},
+    }
+    rng = np.random.default_rng(52)
+    tree["item_table"][:, -1] = rng.normal(size=BIG_N) * 0.1
+    tree["item_table"][65_600:66_100, -1] += 0.3  # in the tail's groups, so that some lists take items there
+    jm._params = jax.tree_util.tree_map(jnp.asarray, tree)
+    pm = lstm.Hyperparameters.from_dict(jm.hyper.to_dict()).build(torch.device("cpu"))
+    pm.load_numpy_params(tree)
+    hs = [rng.integers(0, BIG_N, rng.integers(1, 9)).tolist() for _ in range(40)]
+    got = pm.recommend_batch(hs, k=K, return_scores=True)
+    route, _ = base.topk_streamed.last_route
+    kk = K + max(len(h) for h in hs)
+    assert route.single_pass and (route.group, route.sub) == (32, 8)
+    groups = tk.groupmax_rows(BIG_N, route.group)
+    assert groups // base.SUPER_GROUP > kk and groups % base.SUPER_GROUP
+    _assert_topk_equal(got, _reference(jm, hs))
+    assert base.topk_streamed.rechecked_users == 0
