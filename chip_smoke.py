@@ -53,21 +53,26 @@ attention families, one phase per printed line:
    on all-positive inputs against the bound; K4 timed at 50M x 33 (U =
    4096 and 1) on both tiles and at 10M x 128 x 4096;
 3c. (run once the launch counters exist, after phase 4's K4 check) HSTU's
-   layer norms (``ops/hstu_kernels.py``, ``csrc/hstu_norm.cu``) at the HSTU
-   cell's shapes, 8,192 x 200 = 1,638,400 rows of 50, 2 heads of 25: one
+   layer norms (``ops/hstu_kernels.py``, ``csrc/hstu_norm.cu``) on the HSTU
+   cell's serving path (rows of 50, 2 heads of 25, 200 positions): one
    ``recommend_batch(k=10, exclude_seen=True, timestamps=...)`` of 8,192
    timed histories of 20-200 items on an 8-block model of 26,744 items, the
-   cell's serving path (each kernel launched exactly 8 times, no LSTM
-   kernel), then the pre-norm and the gated norm against their plain versions (the
-   largest difference over the largest plain magnitude within 1e-6), each
-   timed by device time beside its plain version, its byte bound and
+   cell's serving path, pipelined in ``parts = _pipeline_parts(8192)``
+   sub-batches (each kernel launched exactly 8 times a sub-batch, no LSTM
+   kernel), then the pre-norm and the gated norm against their plain
+   versions (the largest difference over the largest plain magnitude within
+   1e-6) at the rows of one sub-batch (``8,192 // parts`` users, the shape
+   the path launches) and of the whole batch (1,638,400 rows), each timed by device time
+   beside its plain version, its byte bound and
    ``torch.nn.functional.layer_norm`` over the same rows (``library_ms``,
-   which the port never calls);
+   which the port never calls); the kernels line holds the sub-batch's;
 3d. (after 3c) HSTU's attention (``ops/hstu_kernels.py hstu_attention``,
    ``csrc/hstu_attention.cu``): the same serving path launching it exactly
-   8 times, then the kernel alone at the cell's shapes (8,192 histories of
-   200 positions, 2 heads of 25, lengths by the cell's law: log-normal,
-   median 68, sigma 1.22, clipped to 20-200) against the plain chain (the
+   8 times a sub-batch, then the kernel alone at one sub-batch's shapes
+   (``8,192 // parts`` histories of 200 positions, 2 heads of 25, lengths
+   by the cell's law: log-normal, median 68, sigma 1.22, clipped to
+   20-200), the kernels line's, and at 8,192 histories, against the plain
+   chain (the
    largest difference at a valid position over the largest plain magnitude
    within 1e-6, zeros past each length), timed by device time beside the
    plain chain and its bound (the FP32 operations of the valid causal pairs;
@@ -728,11 +733,13 @@ def hstu_serving_path(dev, zero_counters, read_counters, absent, kernels):
     8,192 timed histories of 20-200 items on the HSTU cell's 8-block model
     (26,744 items, D = 50, 2 heads), after a warm-up, with every launch
     counter from 0; ``read_counters`` checks that each of ``kernels``
-    launched and none of ``absent`` did."""
+    launched and none of ``absent`` did. Returns the sub-batches the call
+    ran in (``recommend_batch.pipelined_subbatches``), after checking them
+    against ``_pipeline_parts``."""
     import numpy as np
     import torch
 
-    from sbr_rs_tpu_torch.models import hstu
+    from sbr_rs_tpu_torch.models import base, hstu
 
     b, t, d, heads, layers = HSTU_USERS, HSTU_T, HSTU_DIM, HSTU_HEADS, HSTU_LAYERS
     model = (hstu.Hyperparameters(HSTU_ITEMS, t).embedding_dim(d).num_layers(layers).num_heads(heads)
@@ -744,76 +751,97 @@ def hstu_serving_path(dev, zero_counters, read_counters, absent, kernels):
     model.recommend_batch(histories, k=10, exclude_seen=True, timestamps=times)  # warm-up
     torch.cuda.synchronize()
     zero_counters()
+    served = base.ImplicitSequenceModel.recommend_batch
+    before = served.pipelined_subbatches
     ids = model.recommend_batch(histories, k=10, exclude_seen=True, timestamps=times)
     torch.cuda.synchronize()
+    parts = served.pipelined_subbatches - before
     read_counters("hstu serving path", kernels, absent=absent)
     if len(ids) != b or any(len(row) != 10 for row in ids):
         raise SmokeFailure(f"the hstu serving path returned {len(ids)} lists, not {b} of 10")
+    if max(parts, 1) != model._pipeline_parts(b):
+        raise SmokeFailure(f"the hstu serving path ran {parts} sub-batches, expected {model._pipeline_parts(b)}")
+    print(f"  hstu serving path: {parts} pipelined sub-batches of a batch of {b} users", flush=True)
     del model, histories, times, ids
     torch.cuda.empty_cache()
+    return max(parts, 1)
 
 
 def hstu_norm_phase(dev, mark, record, zero_counters, read_counters, absent):
-    """Phase 3c: HSTU's two layer norms at the HSTU cell's shapes (8,192
-    users x 200 positions, D = 50, 2 heads of 25): one ``recommend_batch``
-    of 8,192 timed histories of 20-200 items, the path the cell serves,
-    through the launch counters (each kernel exactly once a block), then each
-    kernel against its plain version and timed by device time beside it, its
-    byte bound (each input byte read once, ``u``'s 50 floats a row of its
-    200, each output byte written once) and PyTorch's layer norm over the
-    same rows."""
+    """Phase 3c: HSTU's two layer norms on the HSTU cell's serving path: one
+    ``recommend_batch`` of 8,192 timed histories of 20-200 items, the path
+    the cell serves, through the launch counters (each kernel exactly once a
+    block and sub-batch), then each kernel against its plain version at the
+    rows of one sub-batch of that call (``8,192 // parts`` users x 200
+    positions, D = 50, 2 heads of 25: the shape the path launches it at)
+    and of the whole batch, and timed by device time beside it, its byte
+    bound (each input byte read once, ``u``'s 50 floats a row of its 200,
+    each output byte written once) and PyTorch's layer norm over the same
+    rows. The kernels line holds the sub-batch's numbers."""
     import torch
 
     from sbr_rs_tpu_torch.ops import hstu_kernels as hk
 
     mark("phase 3c")
     b, t, d, heads, layers = HSTU_USERS, HSTU_T, HSTU_DIM, HSTU_HEADS, HSTU_LAYERS
-    rows, hd = b * t, d // heads
-    hstu_serving_path(dev, zero_counters, read_counters, absent, ("hstu_norm", "hstu_gated_norm"))
-    if (hk.hstu_norm.launches, hk.hstu_gated_norm.launches) != (layers, layers):
+    hd = d // heads
+    parts = hstu_serving_path(dev, zero_counters, read_counters, absent, ("hstu_norm", "hstu_gated_norm"))
+    if (hk.hstu_norm.launches, hk.hstu_gated_norm.launches) != (layers * parts, layers * parts):
         raise SmokeFailure(f"phase 3c: {hk.hstu_norm.launches} pre-norm and {hk.hstu_gated_norm.launches} gated "
-                           f"launches in one recommend_batch of a {layers}-block model, expected {layers} each")
+                           f"launches in one recommend_batch of a {layers}-block model in {parts} sub-batches, "
+                           f"expected {layers * parts} each")
 
-    gen = torch.Generator(device=dev).manual_seed(22)
-    h = torch.randn((b, t, d), device=dev, generator=gen) * 2.0 + 0.5
-    u = torch.randn((rows, 4 * d), device=dev, generator=gen).split(d, dim=1)[0]
-    o = torch.randn((b, heads, t, hd), device=dev, generator=gen)
-    row_bytes = 4.0 * rows * d
-    cases = (
-        ("hstu_norm", lambda: hk.hstu_norm(h), lambda: hk.hstu_norm_plain(h),
-         lambda: torch.nn.functional.layer_norm(h, (d,), eps=hk.EPS), (6.0 * rows * d, 2 * row_bytes)),
-        ("hstu_gated_norm", lambda: hk.hstu_gated_norm(u, o), lambda: hk.hstu_gated_norm_plain(u, o),
-         lambda: torch.nn.functional.layer_norm(o.view(rows, d), (d,), eps=hk.EPS), (7.0 * rows * d, 3 * row_bytes)),
-    )
+    served = b // parts
     batch_ms = 0.0
-    for name, kernel, plain, library, work in cases:
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = float((got.reshape(want.shape) - want).abs().max())
-        rel = err / float(want.abs().max())
-        del got, want
-        if not rel <= 1e-6:
-            raise SmokeFailure(f"phase 3c {name}: largest difference {rel:.3e} of the largest magnitude, above 1e-6")
-        ms, plain_ms, library_ms = device_ms(kernel), device_ms(plain), device_ms(library)
-        batch_ms += layers * ms
-        print(f"  {name} {b} x {t} x {d} ({heads} heads): {ms:.4f} ms device, plain {plain_ms:.4f} ms, "
-              f"layer_norm {library_ms:.4f} ms; largest difference {err:.3e} ({rel:.3e} of the largest "
-              f"magnitude)", flush=True)
-        record(name, err, ms, plain_ms, work=work, library_ms=library_ms)
-    print(f"phase 3c: HSTU's norms {batch_ms:.3f} ms a batch of {b} users ({layers} blocks)", flush=True)
-    del h, u, o
-    torch.cuda.empty_cache()
+    for users in sorted({b, served}, reverse=True):  # the sub-batch's last: its numbers are kept
+        rows = users * t
+        gen = torch.Generator(device=dev).manual_seed(22)
+        h = torch.randn((users, t, d), device=dev, generator=gen) * 2.0 + 0.5
+        u = torch.randn((rows, 4 * d), device=dev, generator=gen).split(d, dim=1)[0]
+        o = torch.randn((users, heads, t, hd), device=dev, generator=gen)
+        row_bytes = 4.0 * rows * d
+        cases = (
+            ("hstu_norm", lambda: hk.hstu_norm(h), lambda: hk.hstu_norm_plain(h),
+             lambda: torch.nn.functional.layer_norm(h, (d,), eps=hk.EPS), (6.0 * rows * d, 2 * row_bytes)),
+            ("hstu_gated_norm", lambda: hk.hstu_gated_norm(u, o), lambda: hk.hstu_gated_norm_plain(u, o),
+             lambda: torch.nn.functional.layer_norm(o.view(rows, d), (d,), eps=hk.EPS),
+             (7.0 * rows * d, 3 * row_bytes)),
+        )
+        for name, kernel, plain, library, work in cases:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = float((got.reshape(want.shape) - want).abs().max())
+            rel = err / float(want.abs().max())
+            del got, want
+            if not rel <= 1e-6:
+                raise SmokeFailure(f"phase 3c {name} at {users} users: largest difference {rel:.3e} of the "
+                                   f"largest magnitude, above 1e-6")
+            ms, plain_ms, library_ms = device_ms(kernel), device_ms(plain), device_ms(library)
+            print(f"  {name} {users} x {t} x {d} ({heads} heads): {ms:.4f} ms device, plain {plain_ms:.4f} ms, "
+                  f"layer_norm {library_ms:.4f} ms; largest difference {err:.3e} ({rel:.3e} of the largest "
+                  f"magnitude)", flush=True)
+            if users == served:
+                batch_ms += layers * parts * ms
+                record(name, err, ms, plain_ms, work=work, library_ms=library_ms)
+            else:
+                record(name, err)
+        del h, u, o
+        torch.cuda.empty_cache()
+    print(f"phase 3c: HSTU's norms {batch_ms:.3f} ms a batch of {b} users ({layers} blocks, {parts} sub-batches "
+          f"of {served})", flush=True)
 
 
 def hstu_attention_phase(dev, mark, record, zero_counters, read_counters, absent):
     """Phase 3d: HSTU's attention, H2. The serving path of phase 3c through
-    the launch counters (H2 exactly once a block), then the kernel alone at
-    the HSTU cell's shapes (8,192 histories of 200 positions, 2 heads of 25)
-    with lengths by the cell's law against the plain chain, timed by device
-    time beside it and its bound: the FP32 operations of the valid causal
-    pairs (``Q K^T`` and ``A V``, 2 x 2 x hd a pair and head) and the bytes
-    these inputs need (q, k and v of the valid rows, one int32 bucket a valid
-    pair, o written once)."""
+    the launch counters (H2 exactly once a block and sub-batch), then the
+    kernel alone at one sub-batch of that call (``8,192 // parts``
+    histories of 200 positions, 2 heads of 25: the shape the path launches
+    it at) and at the whole batch, with lengths by the cell's law, against
+    the plain chain, timed by device time beside it and its bound: the FP32
+    operations of the valid causal pairs (``Q K^T`` and ``A V``, 2 x 2 x hd
+    a pair and head) and the bytes these inputs need (q, k and v of the
+    valid rows, one int32 bucket a valid pair, o written once). The kernels
+    line holds the sub-batch's numbers."""
     import numpy as np
     import torch
 
@@ -822,48 +850,56 @@ def hstu_attention_phase(dev, mark, record, zero_counters, read_counters, absent
     mark("phase 3d")
     b, t, d, heads, layers = HSTU_USERS, HSTU_T, HSTU_DIM, HSTU_HEADS, HSTU_LAYERS
     hd = d // heads
-    hstu_serving_path(dev, zero_counters, read_counters, absent, ("hstu_attention",))
-    if hk.hstu_attention.launches != layers:
+    parts = hstu_serving_path(dev, zero_counters, read_counters, absent, ("hstu_attention",))
+    if hk.hstu_attention.launches != layers * parts:
         raise SmokeFailure(f"phase 3d: {hk.hstu_attention.launches} attention launches in one recommend_batch "
-                           f"of a {layers}-block model, expected {layers}")
+                           f"of a {layers}-block model in {parts} sub-batches, expected {layers * parts}")
 
-    rng = np.random.default_rng(24)
-    lens = np.clip(np.rint(rng.lognormal(np.log(68), 1.22, b)), 20, t).astype(np.int64)
-    gen = torch.Generator(device=dev).manual_seed(24)
-    _, v, q, k = torch.randn((b * t, 4 * d), device=dev, generator=gen).split(d, dim=1)
-    v, q, k = (z.reshape(b, t, heads, hd).transpose(1, 2) for z in (v, q, k))
-    pos_w = 0.02 * torch.randn((2 * t - 1,), device=dev, generator=gen)
-    ts_w = 0.02 * torch.randn((129,), device=dev, generator=gen)
-    buckets = torch.randint(0, 72, (b, t, t), device=dev, generator=gen, dtype=torch.int32)
-    lengths = torch.from_numpy(lens).to(dev)
+    served = b // parts
+    batch_ms = 0.0
+    for users in sorted({b, served}, reverse=True):  # the sub-batch's last: its numbers are kept
+        rng = np.random.default_rng(24)
+        lens = np.clip(np.rint(rng.lognormal(np.log(68), 1.22, users)), 20, t).astype(np.int64)
+        gen = torch.Generator(device=dev).manual_seed(24)
+        _, v, q, k = torch.randn((users * t, 4 * d), device=dev, generator=gen).split(d, dim=1)
+        v, q, k = (z.reshape(users, t, heads, hd).transpose(1, 2) for z in (v, q, k))
+        pos_w = 0.02 * torch.randn((2 * t - 1,), device=dev, generator=gen)
+        ts_w = 0.02 * torch.randn((129,), device=dev, generator=gen)
+        buckets = torch.randint(0, 72, (users, t, t), device=dev, generator=gen, dtype=torch.int32)
+        lengths = torch.from_numpy(lens).to(dev)
 
-    def kernel():
-        return hk.hstu_attention(q, k, v, pos_w, ts_w, buckets, lengths)
+        def kernel():
+            return hk.hstu_attention(q, k, v, pos_w, ts_w, buckets, lengths)
 
-    def plain():
-        return hk.hstu_attention_plain(q, k, v, pos_w, ts_w, buckets)
+        def plain():
+            return hk.hstu_attention_plain(q, k, v, pos_w, ts_w, buckets)
 
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    valid = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, :, None].expand_as(got)
-    err = float((got - want).abs()[valid].max())
-    rel = err / float(want.abs().max())
-    past = float(got[~valid].abs().max())
-    del got, want, valid
-    if not rel <= 1e-6 or past != 0.0:
-        raise SmokeFailure(f"phase 3d hstu_attention: largest difference {rel:.3e} of the largest magnitude "
-                           f"(limit 1e-6), {past:.3e} past the lengths (expected 0)")
-    ms, plain_ms = device_ms(kernel), device_ms(plain, reps=5)
-    pairs = float((lens * (lens + 1) // 2).sum())
-    flops = 2 * 2 * hd * heads * pairs
-    moved = 4.0 * (3 * heads * hd * float(lens.sum()) + pairs + b * heads * t * hd)
-    print(f"  hstu_attention {b} x {t}, {heads} heads of {hd}, lengths median {np.median(lens):.0f} (valid pairs "
-          f"{pairs / (b * t * t):.1%} of the square): {ms:.4f} ms device, plain {plain_ms:.4f} ms; largest "
-          f"difference {err:.3e} ({rel:.3e} of the largest magnitude)", flush=True)
-    record("hstu_attention", err, ms, plain_ms, work=(flops, moved))
-    print(f"phase 3d: HSTU's attention {layers * ms:.3f} ms a batch of {b} users ({layers} blocks)", flush=True)
-    del q, k, v, buckets
-    torch.cuda.empty_cache()
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        valid = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, :, None].expand_as(got)
+        err = float((got - want).abs()[valid].max())
+        rel = err / float(want.abs().max())
+        past = float(got[~valid].abs().max())
+        del got, want, valid
+        if not rel <= 1e-6 or past != 0.0:
+            raise SmokeFailure(f"phase 3d hstu_attention at {users} users: largest difference {rel:.3e} of the "
+                               f"largest magnitude (limit 1e-6), {past:.3e} past the lengths (expected 0)")
+        ms, plain_ms = device_ms(kernel), device_ms(plain, reps=5)
+        pairs = float((lens * (lens + 1) // 2).sum())
+        flops = 2 * 2 * hd * heads * pairs
+        moved = 4.0 * (3 * heads * hd * float(lens.sum()) + pairs + users * heads * t * hd)
+        print(f"  hstu_attention {users} x {t}, {heads} heads of {hd}, lengths median {np.median(lens):.0f} "
+              f"(valid pairs {pairs / (users * t * t):.1%} of the square): {ms:.4f} ms device, plain "
+              f"{plain_ms:.4f} ms; largest difference {err:.3e} ({rel:.3e} of the largest magnitude)", flush=True)
+        if users == served:
+            batch_ms = layers * parts * ms
+            record("hstu_attention", err, ms, plain_ms, work=(flops, moved))
+        else:
+            record("hstu_attention", err)
+        del q, k, v, buckets
+        torch.cuda.empty_cache()
+    print(f"phase 3d: HSTU's attention {batch_ms:.3f} ms a batch of {b} users ({layers} blocks, {parts} "
+          f"sub-batches of {served})", flush=True)
 
 
 def main() -> None:

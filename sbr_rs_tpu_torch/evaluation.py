@@ -207,6 +207,7 @@ def _batch_inputs(model, test: CompressedInteractions, users: np.ndarray, num_it
 
     # Distinct seen ids: sorted rows, repeats replaced by the pad value.
     seen = _seen_rows(flat, lens, num_items, max(int(lens.max()), 1))
+    seen.sort(axis=1)
     seen[:, 1:][seen[:, 1:] == seen[:, :-1]] = num_items
     seen.sort(axis=1)
     seen = seen[:, : max(int((seen < num_items).sum(axis=1).max()), 1)]

@@ -22,7 +22,10 @@ attention.
 Serving (``recommend_batch``):
 
 * catalogs of at most ``_SERVE_ITEM_CHUNK`` items: one dense ``[U, N]``
-  score matrix and one top-k (:func:`topk_small`);
+  score matrix and one top-k (:func:`topk_small`); a batch of at least
+  ``2 * PIPELINE_MIN_USERS`` users runs as sub-batches in a pipeline, the
+  host preparing one while the card runs the one before
+  (:meth:`ImplicitSequenceModel._pipeline_parts`);
 * larger catalogs: the exact two-phase selection (:func:`topk_streamed`).
   Phase 1 keeps the top ``k + S`` groups by group maximum from the fused
   score + group-max kernels (:mod:`..ops.topk_kernels`, on the tensor
@@ -296,22 +299,42 @@ def device_count() -> int:
 # -- host-side request preparation (vectorised numpy) -------------------------
 
 
+def _int64_array(shape) -> np.ndarray:
+    return np.empty(shape, np.int64)
+
+
+def _lengths(rows: Sequence[Sequence[int]]) -> np.ndarray:
+    """Each row's length, as int64."""
+    return np.fromiter((len(r) for r in rows), dtype=np.int64, count=len(rows))
+
+
 def _flatten(histories: Sequence[Sequence[int]]) -> Tuple[np.ndarray, np.ndarray]:
     """All histories' ids end to end, and each history's length."""
-    lens = np.fromiter((len(h) for h in histories), dtype=np.int64, count=len(histories))
+    lens = _lengths(histories)
     return _concat_rows(histories, lens), lens
 
 
-def _concat_rows(rows: Sequence[Sequence[int]], lens: np.ndarray) -> np.ndarray:
+def _concat_rows(rows: Sequence[Sequence[int]], lens: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
     """``rows`` end to end as int64, ``lens`` their lengths: one
     ``np.concatenate`` where the rows are integer arrays (the first an
     array, the result 1-D, integer and ``lens.sum()`` long), else the
-    rows' Python ints read one by one."""
+    rows' Python ints read one by one. ``out``: an int64 array of
+    ``lens.sum()`` to write them into, and return."""
     if len(rows) and isinstance(rows[0], np.ndarray):
-        flat = np.concatenate(rows)
-        if flat.ndim == 1 and flat.dtype.kind in "iu" and flat.size == lens.sum():
-            return flat.astype(np.int64, copy=False)
-    return np.fromiter(itertools.chain.from_iterable(rows), dtype=np.int64, count=int(lens.sum()))
+        if out is not None:
+            try:  # the same rows as below, straight into ``out``
+                return np.concatenate(rows, out=out)
+            except (TypeError, ValueError):
+                pass
+        else:
+            flat = np.concatenate(rows)
+            if flat.ndim == 1 and flat.dtype.kind in "iu" and flat.size == lens.sum():
+                return flat.astype(np.int64, copy=False)
+    flat = np.fromiter(itertools.chain.from_iterable(rows), dtype=np.int64, count=int(lens.sum()))
+    if out is None:
+        return flat
+    out[...] = flat
+    return out
 
 
 def _window_ids(flat: np.ndarray, lens: np.ndarray, t: int) -> np.ndarray:
@@ -324,7 +347,7 @@ def _window_ids(flat: np.ndarray, lens: np.ndarray, t: int) -> np.ndarray:
 
 
 def _tower_windows(
-    flat: np.ndarray, times: Optional[np.ndarray], lens: np.ndarray, t: int, device
+    flat: np.ndarray, times: Optional[np.ndarray], lens: np.ndarray, t: int, device, put=None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """The tower's inputs on ``device``: ``ids [U, t]``, ``times [U, t + 1]``
     (``None`` without ``times``) and ``last [U]``, gathered there from one
@@ -335,53 +358,138 @@ def _tower_windows(
     position ``i``'s query time and the last valid position's is its own;
     ``last[r] = max(keep - 1, 0)``, the position whose state is the
     representation. An empty history reads as item 0 at time 0 (the
-    reference's index inputs default to item 0)."""
+    reference's index inputs default to item 0). ``put(array)`` makes each
+    host array's copy on ``device`` (:meth:`_SubBatch.put` in the pipelined
+    small route); by default a plain copy."""
+    if put is None:
+        put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     u = len(lens)
     keep = np.minimum(lens, t)
-    last = torch.from_numpy(np.maximum(keep - 1, 0)).to(device)
+    last = put(np.maximum(keep - 1, 0))
     if not flat.size:
         zeros = torch.zeros((u, t + 1), dtype=torch.int64, device=device)
         return zeros[:, :t], None if times is None else zeros, last
-    meta = torch.from_numpy(np.stack([np.where(keep > 0, np.cumsum(lens) - keep, 0), keep], axis=1)).to(device)
+    meta = put(np.stack([np.where(keep > 0, np.cumsum(lens) - keep, 0), keep], axis=1))
     first, kept = meta[:, :1], meta[:, 1:]
     col = torch.arange(t + 1, device=device)
     src = first + torch.minimum(col, kept - 1).clamp_(min=0)
-    ids = torch.from_numpy(flat).to(device)[src[:, :t]].masked_fill_(col[:t] >= kept, 0)
+    ids = put(flat)[src[:, :t]].masked_fill_(col[:t] >= kept, 0)
     if times is None:
         return ids, None, last
-    rows = torch.from_numpy(times).to(device)[src].masked_fill_(kept == 0, 0)
+    rows = put(times)[src].masked_fill_(kept == 0, 0)
     return ids, rows, last
+
+
+def _check_times(timestamps: Sequence[Sequence[int]], lens: np.ndarray) -> None:
+    """Raises ``ValueError`` unless each history (of ``lens`` items) has
+    one timestamp an item."""
+    if len(timestamps) != len(lens):
+        raise ValueError(f"{len(timestamps)} rows of timestamps for {len(lens)} histories")
+    bad = np.flatnonzero(_lengths(timestamps) != lens)
+    if bad.size:
+        r = int(bad[0])
+        raise ValueError(f"history {r} has {lens[r]} items but {len(timestamps[r])} timestamps")
 
 
 def _flatten_times(timestamps: Sequence[Sequence[int]], lens: np.ndarray) -> np.ndarray:
     """All histories' timestamps end to end (int64 seconds), as
     :func:`_flatten` lays out their ids; raises ``ValueError`` unless each
     history has one timestamp an item."""
-    if len(timestamps) != len(lens):
-        raise ValueError(f"{len(timestamps)} rows of timestamps for {len(lens)} histories")
-    counts = np.fromiter((len(t) for t in timestamps), dtype=np.int64, count=len(timestamps))
-    bad = np.flatnonzero(counts != lens)
-    if bad.size:
-        r = int(bad[0])
-        raise ValueError(f"history {r} has {lens[r]} items but {counts[r]} timestamps")
+    _check_times(timestamps, lens)
     return _concat_rows(timestamps, lens)
 
 
-def _seen_rows(flat: np.ndarray, lens: np.ndarray, n: int, width: int) -> np.ndarray:
-    """``[U, width]`` seen ids sorted ascending per row; empty slots hold
-    ``n`` (one past the catalog: never a candidate)."""
-    seen = np.full((len(lens), width), n, dtype=np.int64)
+def _seen_rows(flat: np.ndarray, lens: np.ndarray, n: int, width: int, buffer=_int64_array) -> np.ndarray:
+    """``[U, width]`` seen ids, each row's in history order then empty
+    slots holding ``n`` (one past the catalog: never a candidate), in the
+    int64 array ``buffer(shape)`` makes. The top-k reads them in any order;
+    a caller that needs them sorted sorts them."""
+    seen = buffer((len(lens), width))
+    seen[...] = n
     seen[np.arange(width) < lens[:, None]] = flat
-    seen.sort(axis=1)
     return seen
 
 
-def _seen(flat: np.ndarray, lens: np.ndarray, n: int, exclude_seen: bool) -> np.ndarray:
+def _seen(flat: np.ndarray, lens: np.ndarray, n: int, exclude_seen: bool, buffer=_int64_array) -> np.ndarray:
     """The rows the top-k filters: :func:`_seen_rows` with ``exclude_seen``,
     else one empty slot a user."""
     if exclude_seen:
-        return _seen_rows(flat, lens, n, max(int(lens.max()), 1))
-    return np.full((len(lens), 1), n, dtype=np.int64)
+        return _seen_rows(flat, lens, n, max(int(lens.max()), 1), buffer)
+    seen = buffer((len(lens), 1))
+    seen[...] = n
+    return seen
+
+
+# The small route serves a batch of at least twice this many users as
+# ``U // PIPELINE_MIN_USERS`` sub-batches in a pipeline
+# (:meth:`ImplicitSequenceModel.recommend_batch`): the host prepares
+# one while the card runs the one before. From
+# ``scripts/serve_pipeline_probe.py`` on an H100 (700 W) at the HSTU
+# cell's 8,192 users, ms a batch (medians of 3 seeds) by sub-batches:
+# 1: 86.6, 2: 75.4, 4: 73.6, 8: 93.2. At 4 the card is busy 89-90 % of
+# the call; at 8 the host's fixed cost a sub-batch (its launches) outruns
+# the card's ~9 ms of work, and the card waits (busy 63-72 %).
+PIPELINE_MIN_USERS = 2048
+
+
+class _SubBatch:
+    """One sub-batch of ``recommend_batch`` on its way through the device
+    (the whole batch where it is served in one): users ``[lo, hi)`` of the
+    batch, the host arrays its copies read and write, and the event behind
+    its lists' copies to the host. On a card the arrays are pinned and
+    every copy is queued without a wait; they are held until the sub-batch
+    lands, after the event, so that no buffer is reused under a copy (a
+    call that raises waits for the card before it lets them go). On the
+    CPU the same steps run on plain arrays."""
+
+    def __init__(self, device: torch.device, lo: int, hi: int):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.pinned = device.type == "cuda"
+        self.held: List[torch.Tensor] = []
+        self.out: Tuple[torch.Tensor, ...] = ()
+        self.event = None
+
+    def buffer(self, shape) -> np.ndarray:
+        """An int64 host array (pinned on a card) to fill and :meth:`put`."""
+        if not self.pinned:
+            return _int64_array(shape)
+        t = torch.empty(shape, dtype=torch.int64, pin_memory=True)
+        self.held.append(t)
+        return t.numpy()
+
+    def put(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device. On a card a copy that does not wait, from
+        ``a`` itself where it lies in pinned memory (:meth:`buffer`), else
+        from a pinned copy of it."""
+        h = torch.from_numpy(a)
+        if not self.pinned:
+            return h.to(self.device)
+        if not h.is_pinned():
+            h = h.pin_memory()
+        self.held.append(h)
+        return h.to(self.device, non_blocking=True)
+
+    def fetch(self, tensors: Tuple[torch.Tensor, ...]) -> None:
+        """Queue copies of ``tensors`` to the host (pinned buffers on a
+        card), then an event behind them."""
+        if not self.pinned:
+            self.out = tensors
+            return
+        self.out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                         for t in tensors)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(self.device))
+
+    def land(self, ids: np.ndarray, scores: Optional[np.ndarray]) -> None:
+        """Wait for the copies (the sub-batch's one wait for the card),
+        then write its ids into ``ids[lo:hi]`` and, where ``scores`` is
+        given, its scores into ``scores[lo:hi]``."""
+        if self.event is not None:
+            self.event.synchronize()
+        ids[self.lo : self.hi] = self.out[0].numpy()
+        if scores is not None:
+            scores[self.lo : self.hi] = self.out[1].numpy()
+        self.held, self.out = [], ()
 
 
 # -- exact top-k ---------------------------------------------------------------
@@ -390,17 +498,25 @@ def _seen(flat: np.ndarray, lens: np.ndarray, n: int, exclude_seen: bool) -> np.
 def topk_small(
     table: torch.Tensor, reps: torch.Tensor, seen: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense ``[U, N]`` scores, seen items set to ``-inf``, one top-k."""
+    """Dense ``[U, N]`` scores, seen items set to ``-inf``, one top-k.
+    Nothing here waits for the card."""
     with span("topk.small"):
         tab = table.to(torch.float32)
         n = tab.shape[0]
         with fp32_matmul():
             scores = reps @ tab[:, :-1].T + tab[:, -1]
-        # Padding slots hold n: a masked scatter skips them (and any id
-        # outside the catalog) instead of indexing past the end.
-        valid = (seen >= 0) & (seen < n)
-        rows = torch.arange(reps.shape[0], device=reps.device)[:, None].expand_as(seen)
-        scores[rows[valid], seen[valid]] = float("-inf")
+        if seen.shape[1]:
+            # One scatter, with no boolean index (whose nonzero waits for
+            # the card). Padding slots (n) and any id outside the catalog
+            # write -inf to the row's first seen id inside it, or, in a row
+            # with none, column 0's own score back to it: every write to a
+            # column writes the same value.
+            inside = (seen >= 0) & (seen < n)
+            first = torch.where(inside, seen, n).amin(dim=1, keepdim=True)
+            some = first < n
+            cols = torch.where(inside, seen, torch.where(some, first, 0))
+            fill = torch.where(some, float("-inf"), scores[:, :1])
+            scores.scatter_(1, cols, fill.expand_as(cols))
         return torch.topk(scores, min(k, n), dim=1)
 
 
@@ -824,8 +940,8 @@ topk_streamed.last_route = None
 def _slab_seen(seen: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """Global seen rows ``[U, S]`` as the slab ``[lo, hi)``'s own: an id
     inside it becomes ``id - lo``; any other id, and the pad, ``hi - lo``
-    (one past the slab). Each row is sorted ascending again, as
-    :func:`_seen_rows` leaves it; the width ``S`` stays the global one."""
+    (one past the slab). Each row is sorted ascending; the width ``S``
+    stays the global one."""
     local = torch.where((seen >= lo) & (seen < hi), seen - lo, hi - lo)
     return local.sort(dim=1).values
 
@@ -1196,7 +1312,7 @@ class ImplicitSequenceModel:
     # -- serving --------------------------------------------------------------
 
     def _representations(
-        self, flat: np.ndarray, lens: np.ndarray, timestamps: Optional[np.ndarray] = None
+        self, flat: np.ndarray, lens: np.ndarray, timestamps: Optional[np.ndarray] = None, put=None
     ) -> torch.Tensor:
         """Batched user representations ``[U, D]`` (f32, on the device) of
         the histories given as :func:`_flatten` output (reference
@@ -1206,8 +1322,8 @@ class ImplicitSequenceModel:
         them, which a family whose tower reads times (``_reads_times``)
         needs and any other refuses (``ValueError``). Only the ids the
         windows read are checked, on the host; the windows are laid out on
-        the device (:func:`_tower_windows`), and nothing here waits for the
-        tower."""
+        the device (:func:`_tower_windows`, each host array copied by
+        ``put``), and nothing here waits for the tower."""
         if self._reads_times and timestamps is None:
             raise ValueError(f"{type(self).__name__} needs the histories' timestamps")
         if not self._reads_times and timestamps is not None:
@@ -1219,7 +1335,7 @@ class ImplicitSequenceModel:
             window = _window_ids(flat, lens, t)
             if window.size and (window.min() < 0 or window.max() >= n):
                 raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
-            ids, times, last = _tower_windows(flat, timestamps, lens, t, self.device)
+            ids, times, last = _tower_windows(flat, timestamps, lens, t, self.device, put)
         emb = self._rows(ids.reshape(-1))[:, :-1]
         args = (times, last + 1) if self._reads_times else ()
         with fp32_matmul():
@@ -1273,6 +1389,17 @@ class ImplicitSequenceModel:
         (:func:`topk_slab`, :func:`merge_topk_parts`), so every rank returns
         the same ids and scores.
 
+        The batch runs as :meth:`_pipeline_parts` sub-batches of consecutive
+        users (one but on the small route at ``2 * PIPELINE_MIN_USERS``
+        users or more), each through the same stages (prepare, tower, seen
+        rows, top-k, lists to the host), with the host one sub-batch ahead
+        of the card: it prepares and queues sub-batch ``j + 1``, its copies
+        pinned and queued without a wait (:class:`_SubBatch`), before it
+        waits for sub-batch ``j``'s lists. A user's list and scores do not
+        depend on the other users of its batch, so they are the same in any
+        number of sub-batches; an id outside the catalog in any of them
+        raises before the call returns.
+
         ``approximate`` and ``recall_target`` are the JAX package's
         arguments for its ``lax.approx_max_k`` mode, a TPU operation that
         guarantees a recall of at least ``recall_target``. Here both modes
@@ -1288,25 +1415,72 @@ class ImplicitSequenceModel:
             raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
         if not len(histories):
             return ([], np.zeros((0, k), np.float32)) if return_scores else []
+        u, n = len(histories), self.hyper._num_items
+        parts = self._pipeline_parts(u)
+        cuts = [u * j // parts for j in range(parts + 1)]
+        ids = np.empty((u, min(k, n)), np.int64)
+        scores = np.empty((u, min(k, n)), np.float32) if return_scores else None
+        lists: List[List[int]] = []
+        ahead = None  # the sub-batch on the card while the host prepares the next
         with span("recommend_batch"):
-            with span("serve.prepare"):
-                flat, lens = _flatten(histories)
-                times = None if timestamps is None else _flatten_times(timestamps, lens)
-                n = self.hyper._num_items
-            # Read before the tower is queued: the reading waits for no kernel.
-            with span("serve.budgets"):
-                budgets = self._serving_budgets(len(lens), max(int(lens.max()), 1) if exclude_seen else 1)
-            with span("serve.tower"):
-                reps = self._representations(flat, lens, times)
-            # The seen rows are sorted while the tower runs.
-            with span("serve.prepare"):
-                seen_np = _seen(flat, lens, n, exclude_seen)
-            with span("serve.topk"):
-                seen = torch.from_numpy(seen_np).to(self.device)
-                vals, idx = self._topk(reps, seen, min(k, n), budgets)
-            with span("serve.to_host"):
-                ids = idx.cpu().numpy().tolist()
-                return (ids, vals.cpu().numpy()) if return_scores else ids
+            try:
+                for lo, hi in zip(cuts[:-1], cuts[1:]):
+                    sub = _SubBatch(self.device, lo, hi)
+                    with span("serve.prepare"):
+                        if not lo:  # the whole batch's lengths, and its timestamps' counts
+                            lens = _lengths(histories)
+                            if timestamps is not None:
+                                _check_times(timestamps, lens)
+                        sub_lens = lens[lo:hi]
+                        flat = _concat_rows(histories[lo:hi], sub_lens, sub.buffer(int(sub_lens.sum())))
+                        times = None
+                        if timestamps is not None:
+                            times = _concat_rows(timestamps[lo:hi], sub_lens, sub.buffer(flat.size))
+                    if not lo:
+                        # Once a batch, before the tower is queued: the reading waits for no kernel.
+                        with span("serve.budgets"):
+                            budgets = self._serving_budgets(u, max(int(lens.max()), 1) if exclude_seen else 1)
+                    with span("serve.tower"):
+                        reps = self._representations(flat, sub_lens, times, sub.put)
+                    # The seen rows are laid out while the tower runs.
+                    with span("serve.prepare"):
+                        seen = _seen(flat, sub_lens, n, exclude_seen, sub.buffer)
+                    with span("serve.topk"):
+                        vals, idx = self._topk(reps, sub.put(seen), min(k, n), budgets)
+                        sub.fetch((idx, vals) if return_scores else (idx,))
+                    # The lists become Python lists in two ``tolist`` calls, all
+                    # but the last sub-batch's while the card runs the last: each
+                    # call can start a collection of the garbage collector's
+                    # youngest generation, and so of the older ones, long where
+                    # the caller holds many results.
+                    if ahead is not None:
+                        with span("serve.to_host"):
+                            ahead.land(ids, scores)
+                            if hi == u:  # the last sub-batch is queued
+                                lists = ids[:lo].tolist()
+                    ahead = sub
+                with span("serve.to_host"):
+                    ahead.land(ids, scores)
+                    lists += ids[ahead.lo :].tolist()
+            except BaseException:
+                if self.device.type == "cuda":  # no pinned buffer is let go under a queued copy
+                    torch.cuda.current_stream(self.device).synchronize()
+                raise
+        if parts > 1:
+            ImplicitSequenceModel.recommend_batch.pipelined_subbatches += parts
+        return (lists, scores) if return_scores else lists
+
+    def _pipeline_parts(self, u: int) -> int:
+        """The sub-batches a batch of ``u`` users is served in: ``u //
+        PIPELINE_MIN_USERS`` on the small route of a table no ``model``
+        axis splits (no collective in the loop), else 1. The small route
+        takes any seen width, so the catalog's rows pick it here."""
+        mesh = self.hyper._mesh
+        if u < 2 * PIPELINE_MIN_USERS or (mesh is not None and mesh.model > 1):
+            return 1
+        if self._catalog_route(self.hyper._num_items, 1) != "small":
+            return 1
+        return u // PIPELINE_MIN_USERS
 
     def _topk(self, reps: torch.Tensor, seen: torch.Tensor, k: int, budgets: Tuple[int, int, int]):
         """The exact top-``k`` of the whole catalog on the ``budgets``
@@ -1453,3 +1627,8 @@ class ImplicitSequenceModel:
         load raises), over ``mesh`` when given (each rank reads its slab,
         whatever mesh saved it)."""
         return checkpoint.load_model(path, device, mesh=mesh)
+
+
+# Sub-batches the pipelined small route has served, in calls of more than
+# one (:meth:`ImplicitSequenceModel._pipeline_parts`).
+ImplicitSequenceModel.recommend_batch.pipelined_subbatches = 0
