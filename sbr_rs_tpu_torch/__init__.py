@@ -14,7 +14,10 @@ kernels (``csrc/``), which every family's training, serving and evaluation
 run; the EWMA, GRU and attention towers are plain PyTorch, as they have no
 kernel in the JAX package. A fifth family, HSTU (:mod:`.models.hstu`),
 serves and evaluates on timed histories (``timestamps``); it has no
-counterpart in the JAX package and does not train yet. Models build on the
+counterpart in the JAX package and does not train yet. A sixth,
+DeepSeek-V3's MLA + MoE block as HLLM's user tower (:mod:`.models.mla_moe`,
+Moonlight-16B-A3B's sizes by default), serves and evaluates on plain
+histories and does not train either. Models build on the
 card (``.build()``) unless the caller asks for the CPU (``.build("cpu")``);
 ``model.save(dir)`` and ``ImplicitSequenceModel.load(dir)`` write and read
 the JAX package's checkpoints (:mod:`.utils.checkpoint`), and

@@ -1,7 +1,7 @@
 """Models module: shared enums, the user-representation type, the
-``OnlineRankingModel`` protocol, the five families (:mod:`.lstm`,
-:mod:`.ewma`, :mod:`.gru`, :mod:`.attention`, :mod:`.hstu`) and the training engine
-(:mod:`.engine`).
+``OnlineRankingModel`` protocol, the six families (:mod:`.lstm`,
+:mod:`.ewma`, :mod:`.gru`, :mod:`.attention`, :mod:`.hstu`, :mod:`.mla_moe`)
+and the training engine (:mod:`.engine`).
 
 Copies of the jax-free pieces of :mod:`sbr_rs_tpu.models` (importing that
 package would load jax). The enum values are the JAX package's, so the
@@ -63,7 +63,7 @@ class Parallelism(enum.Enum):
     SYNCHRONOUS = "synchronous"
 
 
-from . import attention, engine, ewma, gru, hstu, lstm  # noqa: E402  (re-exported submodules)
+from . import attention, engine, ewma, gru, hstu, lstm, mla_moe  # noqa: E402  (re-exported submodules)
 
 __all__ = [
     "ImplicitUser",
@@ -77,4 +77,5 @@ __all__ = [
     "gru",
     "hstu",
     "lstm",
+    "mla_moe",
 ]

@@ -80,6 +80,7 @@ import torch
 from ..data import CompressedInteractions, extract_padded_windows, pack_streams, to_streams
 from ..errors import InvalidPredictionValue, NoInteractions, NonFiniteLoss
 from ..ops.topk_kernels import (
+    MAX_ROW_FLOATS,
     groupmax_supported,
     phase1_error_bound,
     score_groupmax,
@@ -1027,6 +1028,8 @@ class ImplicitSequenceModel:
     _SERVE_ITEM_CHUNK = 131072
     # The tower reads each position's time (``timestamps`` in serving).
     _reads_times = False
+    # The tower reads each window's length (its last position plus one).
+    _reads_lengths = False
     # ``fit`` without a mesh runs each batch as this many shares summed as
     # a data axis sums them (``engine.make_train_step(shares=...)``): the
     # collective-free reference a (2, m) mesh's fit is held to bit for bit.
@@ -1076,6 +1079,7 @@ class ImplicitSequenceModel:
         self.device = device
         gen = torch.Generator(device=device).manual_seed(hyper._seed)
         rows = slab_range(hyper._mesh, hyper._num_items)  # raises on an empty slab
+        self._check_serving_width(rows[1] - rows[0])
         if item_table is None:
             params = init_embedding_params(
                 gen, hyper._num_items, hyper._item_embedding_dim, device,
@@ -1098,6 +1102,20 @@ class ImplicitSequenceModel:
         self._jax_key = checkpoint.fresh_key(hyper._seed)
         self._window_cache = None
         self.history: Optional[FitHistory] = None
+
+    def _check_serving_width(self, rows: int) -> None:
+        """Raise ``ValueError`` for a model that could not serve: a catalog
+        (this rank's slab of ``rows`` rows) past one serving chunk is
+        served by the streamed top-k, whose phase 1 (K4) takes table rows of
+        at most :data:`..ops.topk_kernels.MAX_ROW_FLOATS` floats, the
+        embedding and the bias."""
+        width = self.hyper._item_embedding_dim + 1
+        if rows > self._SERVE_ITEM_CHUNK and width > MAX_ROW_FLOATS:
+            raise ValueError(
+                f"embedding_dim={width - 1}: table rows of {width} floats (the embedding and the bias) are "
+                f"wider than the {MAX_ROW_FLOATS} the streamed top-k's score kernel (K4) takes, and a catalog "
+                f"of {rows} rows is past one serving chunk of {self._SERVE_ITEM_CHUNK}"
+            )
 
     # -- subclass hooks -------------------------------------------------------
 
@@ -1323,7 +1341,9 @@ class ImplicitSequenceModel:
         needs and any other refuses (``ValueError``). Only the ids the
         windows read are checked, on the host; the windows are laid out on
         the device (:func:`_tower_windows`, each host array copied by
-        ``put``), and nothing here waits for the tower."""
+        ``put``), and nothing here waits for the tower. The tower is given
+        the times, then each window's length (``last + 1``), where the family
+        reads them (``_reads_times``, ``_reads_lengths``)."""
         if self._reads_times and timestamps is None:
             raise ValueError(f"{type(self).__name__} needs the histories' timestamps")
         if not self._reads_times and timestamps is not None:
@@ -1337,7 +1357,7 @@ class ImplicitSequenceModel:
                 raise InvalidPredictionValue(f"History contains item ids outside [0, {n}).")
             ids, times, last = _tower_windows(flat, timestamps, lens, t, self.device, put)
         emb = self._rows(ids.reshape(-1))[:, :-1]
-        args = (times, last + 1) if self._reads_times else ()
+        args = ((times,) if self._reads_times else ()) + ((last + 1,) if self._reads_lengths else ())
         with fp32_matmul():
             hidden = self._tower_fn()(self._params["tower"], emb.reshape(u, t, -1), *args)
         return hidden[torch.arange(u, device=self.device), last]

@@ -83,6 +83,7 @@ class ImplicitHSTUModel(base.ImplicitSequenceModel):
     before any parameter is drawn, rather than at its first call."""
 
     _reads_times = True
+    _reads_lengths = True
 
     def __init__(
         self, hyper: Hyperparameters, device: "torch.device | str", item_table: Optional[torch.Tensor] = None

@@ -17,6 +17,11 @@ user states ``[B, T, D]``. Counterpart of :mod:`sbr_rs_tpu.models.towers`.
   gaps; it reads each position's time as well as its embedding. Its layer
   norms and its attention run CUDA kernels on the card
   (:mod:`..ops.hstu_kernels`).
+* MLA + MoE (DeepSeek-V3's decoder block, as Moonlight-16B-A3B publishes
+  it): RMSNorm, multi-head latent attention with a decoupled RoPE key, then
+  a SwiGLU MLP (the leading dense layers) or a mixture of sigmoid-routed
+  SwiGLU experts beside shared ones; HLLM's user tower (arXiv:2409.12740)
+  over item embeddings. Plain PyTorch, jagged over each window's length.
 
 The GRU, EWMA and attention towers have no Pallas kernel in the JAX package
 and are plain PyTorch here, on every device, keeping the JAX package's
@@ -27,7 +32,8 @@ each window as a sequence of its own.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -422,3 +428,263 @@ def ewma_apply(params: Params, x: torch.Tensor, starts: Optional[torch.Tensor] =
 
     u = inner_s + inner_a * pre_s[:, :, None, :]
     return u.reshape(b_, nb * k, d)[:, :t_]
+
+
+# -- MLA + MoE (DeepSeek-V3's block) -------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAMoEShape:
+    """The block's sizes, by the names of DeepSeek-V3's ``config.json``;
+    the defaults are Moonlight-16B-A3B's published values
+    (huggingface.co/moonshotai/Moonlight-16B-A3B, ``config.json``). The
+    hidden size is the model's ``embedding_dim``; ``q_lora_rank`` is null
+    (``q`` is one projection), and so is ``rope_scaling`` (no YaRN)."""
+
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            low = 0 if f.name in ("first_k_dense_replace", "n_shared_experts") else 1
+            if f.type == "int" and (not isinstance(value, int) or value < low):
+                raise ValueError(f"{f.name} must be an integer >= {low}, got {value!r}")
+            if f.type == "float":
+                if not value > 0:
+                    raise ValueError(f"{f.name} must be > 0, got {value!r}")
+                object.__setattr__(self, f.name, float(value))  # a config file's 50000 is 50000.0
+        if self.qk_rope_head_dim % 2:
+            raise ValueError(f"qk_rope_head_dim={self.qk_rope_head_dim} must be even (RoPE rotates pairs)")
+        if self.num_experts_per_tok > self.n_routed_experts:
+            raise ValueError(
+                f"num_experts_per_tok={self.num_experts_per_tok} is more than the "
+                f"{self.n_routed_experts} routed experts"
+            )
+
+
+def _swiglu_init(generator: torch.Generator, dim: int, width: int, device: torch.device, experts: int = 0) -> Params:
+    """``w_gate_up [D, 2F]`` (the gate's columns, then the up projection's)
+    and ``w_down [F, D]``, each half Glorot-normal with fans ``(D, F)``;
+    with ``experts``, stacked ``[E, D, 2F]`` and ``[E, F, D]``."""
+    lead = (experts,) if experts else ()
+    std = (2.0 / (dim + width)) ** 0.5
+    return {
+        "w_gate_up": std * torch.randn(lead + (dim, 2 * width), generator=generator, device=device),
+        "w_down": std * torch.randn(lead + (width, dim), generator=generator, device=device),
+    }
+
+
+def init_mla_moe(generator: torch.Generator, dim: int, shape: MLAMoEShape, device: torch.device) -> Dict:
+    """Parameters of the MLA + MoE tower, ``{"layers": [...], "norm"}``: per
+    layer ``attn_norm``, ``attn {w_q [D, H (n + r)], w_kv_a [D, c + r],
+    kv_norm [c], w_kv_b [c, H (n + v)], w_o [H v, D]}``, ``ffn_norm``, and
+    either ``mlp`` (a dense SwiGLU of ``intermediate_size``) or ``router
+    [D, E]``, ``router_bias [E]`` (the correction bias), ``experts`` (E
+    stacked SwiGLUs of ``moe_intermediate_size``) and ``shared`` (the shared
+    experts as one SwiGLU of ``n_shared_experts`` times that width). Matrices
+    Glorot-normal, norm gains 1, the correction bias 0."""
+    s = shape
+    h, n, r, c, v = s.num_attention_heads, s.qk_nope_head_dim, s.qk_rope_head_dim, s.kv_lora_rank, s.v_head_dim
+
+    def layer(index: int) -> Dict:
+        out = {
+            "attn_norm": torch.ones((dim,), device=device),
+            "attn": {
+                "w_q": _glorot(generator, dim, h * (n + r), device),
+                "w_kv_a": _glorot(generator, dim, c + r, device),
+                "kv_norm": torch.ones((c,), device=device),
+                "w_kv_b": _glorot(generator, c, h * (n + v), device),
+                "w_o": _glorot(generator, h * v, dim, device),
+            },
+            "ffn_norm": torch.ones((dim,), device=device),
+        }
+        if index < s.first_k_dense_replace:
+            out["mlp"] = _swiglu_init(generator, dim, s.intermediate_size, device)
+            return out
+        out["router"] = _glorot(generator, dim, s.n_routed_experts, device)
+        out["router_bias"] = torch.zeros((s.n_routed_experts,), device=device)
+        out["experts"] = _swiglu_init(generator, dim, s.moe_intermediate_size, device, s.n_routed_experts)
+        if s.n_shared_experts:
+            out["shared"] = _swiglu_init(generator, dim, s.n_shared_experts * s.moe_intermediate_size, device)
+        return out
+
+    return {"layers": [layer(i) for i in range(s.num_hidden_layers)], "norm": torch.ones((dim,), device=device)}
+
+
+def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * gain`` over the last axis."""
+    return x * torch.rsqrt(x.pow(2).mean(dim=-1, keepdim=True) + eps) * gain
+
+
+def rope_angles(positions: torch.Tensor, width: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(cos, sin)`` ``[M, width / 2]`` of ``positions [M]``: pair ``i``
+    turns by ``position * theta ** (-2 i / width)``, in f32 as DeepSeek-V3's
+    rotary embedding computes it."""
+    inv_freq = 1.0 / theta ** (torch.arange(0, width, 2, device=positions.device, dtype=torch.float32) / width)
+    ang = positions.to(torch.float32)[:, None] * inv_freq[None]
+    return ang.cos(), ang.sin()
+
+
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate each pair ``(2i, 2i + 1)`` of ``x [M, ..., width]`` by the
+    angles of ``cos``/``sin [M, width / 2]`` (DeepSeek's interleaved layout,
+    left interleaved: its de-interleaving permutes ``q`` and ``k`` alike,
+    so every score is the same)."""
+    lead = (x.shape[0],) + (1,) * (x.dim() - 2) + (-1,)
+    cos, sin = cos.reshape(lead), sin.reshape(lead)
+    x0, x1 = x[..., 0::2], x[..., 1::2]
+    return torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1).flatten(-2)
+
+
+def _swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``(silu(x W_gate) * (x W_up)) W_down`` of ``x [M, D]``."""
+    gate, up = (x @ p["w_gate_up"]).chunk(2, dim=1)
+    return (torch.nn.functional.silu(gate) * up) @ p["w_down"]
+
+
+def _mla(p: Dict, x: torch.Tensor, shape: MLAMoEShape, rows: torch.Tensor, cols: torch.Tensor,
+         cos: torch.Tensor, sin: torch.Tensor, mask: torch.Tensor, b_: int, t_: int) -> torch.Tensor:
+    """Multi-head latent attention of the valid positions ``x [M, D]``
+    (already normed): ``q = x W_q``; ``[c, k_pe] = x W_kv_a``; ``[k_nope, v]
+    = RMSNorm(c) W_kv_b``; RoPE on ``q_pe`` and the one shared ``k_pe``;
+    causal softmax attention scaled by ``(n + r) ** -0.5`` in the padded
+    ``[B, H, T, T]`` layout (position ``m`` at ``(rows[m], cols[m])``),
+    where ``mask [B, 1, T, T]`` keeps each query's valid keys at or before
+    it; then ``concat_h(A v) W_o``."""
+    s = shape
+    m = x.shape[0]
+    h, n, r, c, v = s.num_attention_heads, s.qk_nope_head_dim, s.qk_rope_head_dim, s.kv_lora_rank, s.v_head_dim
+    q = (x @ p["w_q"]).view(m, h, n + r)
+    c_kv, k_pe = (x @ p["w_kv_a"]).split([c, r], dim=1)
+    kv = (rms_norm(c_kv, p["kv_norm"], s.rms_norm_eps) @ p["w_kv_b"]).view(m, h, n + v)
+    q = torch.cat([q[..., :n], rope(q[..., n:], cos, sin)], dim=-1)
+    k = torch.cat([kv[..., :n], rope(k_pe, cos, sin)[:, None].expand(m, h, r)], dim=-1)
+    qp = x.new_zeros((b_, h, t_, n + r))
+    kp = x.new_zeros((b_, h, t_, n + r))
+    vp = x.new_zeros((b_, h, t_, v))
+    qp[rows, :, cols] = q
+    kp[rows, :, cols] = k
+    vp[rows, :, cols] = kv[..., n:]
+    scores = (qp @ kp.transpose(-1, -2)).mul_((n + r) ** -0.5).masked_fill_(~mask, float("-inf"))
+    del qp, kp
+    out = torch.softmax(scores, dim=-1) @ vp
+    return out[rows, :, cols].reshape(m, h * v) @ p["w_o"]
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor, k: int,
+              scaling: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's sigmoid router with its correction bias (``topk_method
+    noaux_tc``, one group): ``s = sigmoid(x W_router)``, the experts ``idx =
+    top_k(s + bias)`` (the bias chooses and does not weigh), their weights
+    ``s[idx] / (sum s[idx] + 1e-20) * scaling``. ``([M, k], [M, k])``."""
+    s = torch.sigmoid(x @ router)
+    idx = torch.topk(s + bias, k, dim=1).indices
+    w = s.gather(1, idx)
+    return idx, w / (w.sum(dim=1, keepdim=True) + 1e-20) * scaling
+
+
+def _moe(layer: Dict, x: torch.Tensor, shape: MLAMoEShape) -> torch.Tensor:
+    """The routed experts and the shared ones over the valid positions ``x
+    [M, D]`` (already normed). The token-expert pairs are sorted by expert
+    (a stable sort, so each expert reads its tokens in order), each expert
+    runs its SwiGLU on its own rows, the results go back to their pairs and
+    each token sums its ``k`` weighted outputs in the router's order, then
+    the shared experts' output is added."""
+    m, d = x.shape
+    k = shape.num_experts_per_tok
+    experts = layer["experts"]
+    with span("moe.route"):
+        idx, w = moe_route(x, layer["router"], layer["router_bias"], k, shape.routed_scaling_factor)
+        order = torch.argsort(idx.reshape(-1), stable=True)
+        counts = torch.bincount(idx.reshape(-1), minlength=shape.n_routed_experts).tolist()
+        rows = x.index_select(0, order // k)
+    mla_moe_apply.routed_tokens += sum(counts)
+    mla_moe_apply.max_expert_tokens += max(counts, default=0)
+    with span("moe.experts"):
+        out = torch.empty((m * k, d), dtype=x.dtype, device=x.device)
+        at = 0
+        for e, count in enumerate(counts):
+            if count:
+                p = {"w_gate_up": experts["w_gate_up"][e], "w_down": experts["w_down"][e]}
+                out[at : at + count] = _swiglu(p, rows[at : at + count])
+            at += count
+        del rows
+    with span("moe.route"):
+        pairs = torch.empty_like(out).index_copy_(0, order, out)
+        del out
+        routed = (pairs.view(m, k, d) * w[..., None]).sum(dim=1)
+    if "shared" in layer:
+        with span("moe.mlp"):
+            routed = routed + _swiglu(layer["shared"], x)
+    return routed
+
+
+def mla_moe_apply(params: Dict, x: torch.Tensor, shape: MLAMoEShape,
+                  lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run DeepSeek-V3's decoder blocks over item embeddings ``x [B, T, D]``
+    (left-aligned windows, padded at the end; no position embedding),
+    returning ``[B, T, D]``: the final RMSNorm's output at each valid
+    position, zeros at the padding.
+
+    Per layer ``h += MLA(RMSNorm(h))`` (:func:`_mla`; RoPE positions
+    ``0..L-1`` from each window's oldest item), then ``h += FFN(RMSNorm(h))``:
+    a SwiGLU MLP in the first ``first_k_dense_replace`` layers, else
+    :func:`_moe`. ``lengths [B]`` (int64, on ``x``'s device; ``None``: every
+    position is valid): each window's valid positions, at most ``T``. Only
+    those are gathered, so the per-position work (projections, norms, the
+    router, the experts, the MLPs) never sees the padding; the attention
+    runs in the padded layout, where each query reads only the valid keys at
+    or before it, so the padding feeds no valid output.
+
+    Counters: ``mla_moe_apply.positions`` (valid positions computed),
+    ``.routed_tokens`` (token-expert pairs computed: ``num_experts_per_tok``
+    a position and MoE layer) and ``.max_expert_tokens`` (each MoE layer's
+    busiest expert's tokens, summed). Spans ``sbr.moe.tower`` (the call),
+    ``sbr.moe.attention`` (each layer's norm and MLA), ``sbr.moe.route``,
+    ``sbr.moe.experts`` and ``sbr.moe.mlp`` (the dense and shared
+    SwiGLUs). The experts' token counts come to the host once a MoE layer."""
+    with span("moe.tower"):
+        b_, t_, d = x.shape
+        dev = x.device
+        col = torch.arange(t_, device=dev)
+        if lengths is None:
+            lengths = torch.full((b_,), t_, dtype=torch.int64, device=dev)
+        valid = col[None] < lengths[:, None]  # [B, T]
+        flat = valid.reshape(-1).nonzero().squeeze(1)
+        rows, cols = flat // t_, flat % t_
+        mask = (valid[:, None, :] & (col[None, :] <= col[:, None])[None])[:, None]  # [B, 1, T, T]
+        cos, sin = rope_angles(cols, shape.qk_rope_head_dim, shape.rope_theta)
+        h = x.reshape(b_ * t_, d).index_select(0, flat).to(torch.float32)
+        mla_moe_apply.positions += flat.numel()
+        eps = shape.rms_norm_eps
+        for layer in params["layers"]:
+            with span("moe.attention"):
+                h = h + _mla(layer["attn"], rms_norm(h, layer["attn_norm"], eps), shape, rows, cols, cos, sin,
+                             mask, b_, t_)
+            if "mlp" in layer:
+                with span("moe.mlp"):
+                    h = h + _swiglu(layer["mlp"], rms_norm(h, layer["ffn_norm"], eps))
+            else:
+                h = h + _moe(layer, rms_norm(h, layer["ffn_norm"], eps), shape)
+        out = x.new_zeros((b_ * t_, d), dtype=torch.float32)
+        out[flat] = rms_norm(h, params["norm"], eps)
+        return out.view(b_, t_, d)
+
+
+mla_moe_apply.positions = 0
+mla_moe_apply.routed_tokens = 0
+mla_moe_apply.max_expert_tokens = 0

@@ -62,6 +62,9 @@ from . import _build
 
 _R_BLK = 2048  # output rows pad to this many table rows (the TPU row block)
 _WIDTHS = (8, 16, 32, 64, 128)
+# The widest table row (embedding and bias, f32 or bf16) the score kernels
+# K3, K4 and K5 take: their tiles stage at most this many columns.
+MAX_ROW_FLOATS = 512
 # K3's and K4's two score tiles (``csrc/score_submax_tc.cu``), by the number
 # their C entry points take: table rows on the wgmma's M axis (any width),
 # or on its N axis (narrow rows, where its shared memory fits).
@@ -116,7 +119,7 @@ def groupmax_supported(c: int, cc: int, u: int, group: int) -> bool:
     """Shapes the kernel takes: a group width in {8, 16, 32, 64, 128} (it
     divides the kernel's 128-row tile), ``Cc <= 512`` and at least one
     user. Any ``c`` works: ragged tails are masked inside the kernel."""
-    return group in _WIDTHS and cc <= 512 and u >= 1
+    return group in _WIDTHS and cc <= MAX_ROW_FLOATS and u >= 1
 
 
 def groupmax_rows(c: int, group: int) -> int:
@@ -508,7 +511,7 @@ def phase1_error_bound(table: torch.Tensor, reps_aug: torch.Tensor) -> torch.Ten
 def count_supported(c: int, cc: int, u: int) -> bool:
     """Shapes :func:`score_count_ge` takes: ``Cc <= 512`` and at least one
     user. Any ``c`` works: a ragged tail is masked inside the kernel."""
-    return cc <= 512 and u >= 1
+    return cc <= MAX_ROW_FLOATS and u >= 1
 
 
 def score_count_ge_plain(

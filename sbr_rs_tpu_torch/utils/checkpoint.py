@@ -203,7 +203,7 @@ def load_model(
     ``mesh`` every rank of it calls this and keeps its own slab (module
     docstring). With ``timings``, :func:`msgpack_codec.read` adds its
     seconds."""
-    from ..models import attention, ewma, gru, hstu, lstm
+    from ..models import attention, ewma, gru, hstu, lstm, mla_moe
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -218,6 +218,7 @@ def load_model(
         "attention": (attention, attention.ImplicitAttentionModel),
         "gru": (gru, gru.ImplicitGRUModel),
         "hstu": (hstu, hstu.ImplicitHSTUModel),
+        "mla_moe": (mla_moe, mla_moe.ImplicitMLAMoEModel),
     }
     model_type = config["model_type"]
     if model_type not in families:
